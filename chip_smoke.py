@@ -1,0 +1,568 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port (``sea_codec_torch``) on one CUDA card.
+
+Run from the repository root with no arguments: ``python3 chip_smoke.py``.
+Phases, in order; any failure exits non-zero:
+
+1. Build the CUDA kernels from ``sea_codec_torch/csrc`` (one nvcc each, in
+   parallel) and print the card's name and power limit.
+2. Hold each kernel against its plain PyTorch version on the same inputs,
+   bit for bit (tolerance 0: an integer codec): the fused CBR decode over
+   rs 1..8 x sfb {1,4,8} x C {1,2,8,255} with random bytes and LMS states,
+   an exhaustive dequant check against the table build, and the window
+   search over sfb 1..8 x rs 1..8 on clipping stress signals, with and
+   without a ragged tail.
+3. The committed CBR fixtures: ``sea_encode`` gives their bytes and
+   ``sea_decode`` their PCM.
+4. The main path at real size: a 3-minute 44.1 kHz stereo signal
+   (7,938,000 frames: 1,550 full chunks and a ragged tail) through
+   ``sea_encode`` then ``sea_decode`` with default settings on the card,
+   checked against the plain decode on the CPU, with both kernels' launch
+   counts read around this run only.
+5. The kernels at the main-path shapes: the decode kernel equal to its
+   plain version on all full chunks; the search kernel equal to the file's
+   scale factors, codes and chunk states, and to its plain version on the
+   first two chunks and on the masked tail. Times of each kernel and its
+   plain version, beside two least times for the same work: the roofline
+   (bytes or operations) and the serial chain at the highest SM clock.
+
+The last lines are the kernels' JSON line, the card line and the result
+line. Imports nothing of JAX or of the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
+H100_F32_OPS_PER_S = 67e12  # float32 outside the tensor cores, data sheet
+# That f32 rate counts an FMA as two operations on 128 lanes per SM: an SM
+# issues 128 instructions of any type per clock (half the f32 rate), and
+# has 64 int32 lanes (a quarter of it).
+H100_ISSUE_PER_S = H100_F32_OPS_PER_S / 2
+H100_INT32_OPS_PER_S = H100_F32_OPS_PER_S / 4
+# (int32, f32) instructions per sample (decode) and per candidate-sample
+# (search), counted from the kernels' inner loops in sea_codec_torch/csrc
+DECODE_OPS_PER_SAMPLE = (34, 5)
+SEARCH_OPS_PER_STEP = (54, 5)
+
+# The serial chain each kernel walks, as (integer/f32 instructions,
+# shared-memory loads, shuffles or barriers) that depend on each other in
+# turn, at an assumed Hopper latency of 4 and 23 cycles. Its least time is
+# the chain of one stream at the card's highest SM clock.
+ALU_CYCLES, SMEM_CYCLES = 4, 23
+# decode, one frame: recon(t-1) is h3 -> the dot's last IMAD (w3*h3 plus the
+# other three products) -> SHF >>13 -> IADD +dq -> 2 IMNMX (clamp) -> recon(t);
+# the code fetch and the dequant do not depend on the chain
+DECODE_FRAME_CHAIN = (5, 0)
+# search, one sample step of a candidate: the dot's last IMAD, SHF >>13, IADD
+# (residual), sea_div (IMAD.WIDE, 2 for the 64-bit add, SHF, 3 for the sign
+# fix), 2 (clamp), the quant-table load, SHF (k), I2F, FMUL, FADD, 2 selects
+# (curve ends), FMUL, FADD, F2I.FLOOR, 2 (sign), IADD (pred + dq), 2 (clamp)
+SEARCH_STEP_CHAIN = (26, 1)
+# search, once per window: 5 shuffle levels of (a shuffle, 3 compare-selects),
+# then the winner through shared memory (3 barriers, 2 loads, 3 selects)
+SEARCH_WINDOW_CHAIN = (5 * 3 + 3, 5 + 3 + 2)
+
+
+def chain_cycles(chain):
+    alu, smem = chain
+    return alu * ALU_CYCLES + smem * SMEM_CYCLES
+
+
+def bounds(k, clock_mhz):
+    """Roofline bound (bytes or operations) and chain bound of a kernel."""
+    t_bytes = k["bytes"] / H100_BYTES_PER_S * 1e3
+    int_ops, f32_ops = k["ops"]
+    t_ops = max(int_ops / H100_INT32_OPS_PER_S, (int_ops + f32_ops) / H100_ISSUE_PER_S) * 1e3
+    k["bound_ms"] = max(t_bytes, t_ops)
+    k["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    k["chain_ms"] = k.pop("chain_cycles") / (clock_mhz * 1e6) * 1e3
+    k["clock_mhz"] = clock_mhz
+    k["library_ms"] = None
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def smi(query, units=""):
+    """First card's answer to ``nvidia-smi --query-gpu=<query>``."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", f"--query-gpu={query}", f"--format=csv,noheader{units}"],
+            capture_output=True, text=True, timeout=30,
+        )
+        return out.stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError) as e:
+        raise SmokeFailure(f"nvidia-smi failed: {e}") from e
+
+
+def card_line():
+    return smi("name,power.limit")
+
+
+def max_abs(a, b):
+    import torch
+
+    if a.shape != b.shape:
+        raise SmokeFailure(f"shape mismatch {tuple(a.shape)} vs {tuple(b.shape)}")
+    if a.numel() == 0:
+        return 0
+    if a.dtype == torch.int64:  # u64 ranks: any difference counts as one
+        return int((a.cpu() != b.cpu()).any())
+    return int((a.cpu().long() - b.cpu().long()).abs().max())
+
+
+def cuda_ms(fn, reps):
+    """(ms per call, the last call's result)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, out
+
+
+def worst_of(got, want, what):
+    """Largest difference over paired outputs; fails unless all are 0."""
+    worst = 0
+    for g, p in zip(got, want, strict=True):
+        err = max_abs(g, p)
+        check(err == 0, f"{what}: kernel != plain")
+        worst = max(worst, err)
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def decode_sweep(rng):
+    import torch
+
+    from sea_codec_torch.ops.fused_decode import decode_cbr_fused, decode_cbr_plain
+
+    worst = 0
+    cases = 0
+    for rs in range(1, 9):
+        for sfb in (1, 4, 8):
+            for c in (1, 2, 8, 255):
+                n, frames = 3, 200
+                sff = (20, 7, 1)[cases % 3]
+                w = -(-frames // sff)
+                res = rng.integers(0, 256, (n, -(-frames * c * rs // 8)), dtype=np.uint8)
+                sf = rng.integers(0, 1 << sfb, (n, w, c), dtype=np.uint8)
+                hist = rng.integers(-32768, 32768, (n, c, 4)).astype(np.int32)
+                lim = (1 << 14, 1 << 24, 1 << 31)[cases % 3]  # large weights too
+                wts = rng.integers(-lim, lim, (n, c, 4)).astype(np.int32)
+                cpu = [torch.from_numpy(a) for a in (res, sf, hist, wts)]
+                kw = dict(sfb=sfb, rs=rs, sff=sff, frames=frames)
+                got = decode_cbr_fused(*[t.cuda() for t in cpu], **kw)
+                want = decode_cbr_plain(*cpu, **kw)
+                err = max_abs(got, want)
+                check(err == 0, f"decode rs={rs} sfb={sfb} c={c}: kernel != plain")
+                worst = max(worst, err)
+                cases += 1
+    torch.cuda.synchronize()
+    log(f"[phase 2] fused decode == plain on {cases} configs (rs 1..8 x sfb 1,4,8 x C 1,2,8,255)")
+    return worst
+
+
+def dequant_exhaustive():
+    """Frame 0 of a stream with zero LMS state is its dequantized value, so
+    streams enumerating every (sf, code) read the kernel's dequant back."""
+    import torch
+
+    from sea_codec_torch.ops import bitpack, tables
+    from sea_codec_torch.ops.fused_decode import decode_cbr_fused, decode_cbr_plain
+
+    worst = 0
+    for sfb in range(1, 9):
+        for rs in range(1, 9):
+            s, m = 1 << sfb, 1 << rs
+            sf_all = np.repeat(np.arange(s), m)
+            code_all = np.tile(np.arange(m), s)
+            c = 255
+            n = -(-sf_all.size // c)
+            pad = n * c - sf_all.size
+            sf = np.concatenate([sf_all, np.zeros(pad, np.int64)]).reshape(n, 1, c)
+            codes = np.concatenate([code_all, np.zeros(pad, np.int64)]).reshape(n, c)
+            res = np.stack([bitpack.pack_bits(row, rs) for row in codes])
+            zeros = np.zeros((n, c, 4), np.int32)
+            cpu = [
+                torch.from_numpy(a)
+                for a in (res, sf.astype(np.uint8), zeros, zeros.copy())
+            ]
+            kw = dict(sfb=sfb, rs=rs, sff=1, frames=1)
+            got = decode_cbr_fused(*[t.cuda() for t in cpu], **kw).cpu()
+            dq = got[:, 0, :].reshape(-1)[: sf_all.size].numpy().astype(np.int64)
+            want = tables.dqt(rs, sfb)[sf_all, code_all]
+            check(np.array_equal(dq, want), f"dequant sfb={sfb} rs={rs} != tables.dqt")
+            worst = max(worst, max_abs(got, decode_cbr_plain(*cpu, **kw)))
+    log("[phase 2] kernel dequant == tables.dqt for every (sfb, rs, sf, code)")
+    return worst
+
+
+def stress_signal(rng, frames, c):
+    """Clipping stress: full-scale noise, then full-scale square waves."""
+    half = frames // 2
+    noise = rng.integers(-32768, 32768, (half, c))
+    t = np.arange(frames - half)[:, None]
+    period = rng.integers(3, 40, c)[None, :]
+    square = np.where((t % period) < period // 2, 32767, -32768)
+    return np.concatenate([noise, square]).astype(np.int16)
+
+
+def tail_windows(pcm_tail, sff):
+    """A ragged tail int16[frames, C] as the tail-chunk encode hands it to the
+    search: zero-padded to whole windows, with each window's valid frames."""
+    import torch
+
+    frames, c = pcm_tail.shape
+    w = -(-frames // sff)
+    xt = np.zeros((w * sff, c), np.int16)
+    xt[:frames] = pcm_tail
+    nv = np.clip(frames - np.arange(w) * sff, 0, sff).astype(np.int32)
+    return torch.from_numpy(xt), torch.from_numpy(nv)
+
+
+def search_sweep(rng):
+    import torch
+
+    from sea_codec_torch.ops import lms
+    from sea_codec_torch.ops.window_search import window_search, window_search_plain
+
+    # (sfb, rs, channels, frames per chunk): the full sfb x rs grid on small
+    # channel counts, then 255 channels at sfb 8 on a shorter chunk
+    grid = [(sfb, rs, (1, 2, 3, 8)[i % 4], 1024)
+            for i, (sfb, rs) in enumerate((b, r) for b in range(1, 9) for r in range(1, 9))]
+    grid += [(8, 3, 255, 64), (8, 8, 255, 64)]
+    worst = 0
+    sff = 16
+    for cases, (sfb, rs, c, fpc) in enumerate(grid):
+        wpc = fpc // sff
+        ragged = (cases // 4) % 2 == 1  # every C both with and without
+        tail = 300 * fpc // 1024 if ragged else 0
+        x = stress_signal(rng, 2 * fpc + tail, c)
+        hist = lms.initial_history(c)
+        wts = lms.initial_weights(c)
+        prev = torch.zeros(c, dtype=torch.int32)
+        if cases % 3 == 2:  # a mid-stream state with large weights
+            hist = torch.from_numpy(rng.integers(-32768, 32768, (c, 4)).astype(np.int32))
+            wts = torch.from_numpy(rng.integers(-(1 << 22), 1 << 22, (c, 4)).astype(np.int32))
+            prev = torch.from_numpy(rng.integers(0, 1 << sfb, c).astype(np.int32))
+        kw = dict(sfb=sfb, rs=rs, sff=sff)
+        full = torch.from_numpy(x[: 2 * fpc])
+        got = window_search(full.cuda(), None, hist.cuda(), wts.cuda(), prev.cuda(), wpc=wpc, **kw)
+        want = window_search_plain(full, None, hist, wts, prev, wpc=wpc, **kw)
+        what = f"search sfb={sfb} rs={rs} c={c} ragged={ragged}"
+        worst = max(worst, worst_of(got, want, what))
+        if ragged:
+            xt, nv = tail_windows(x[2 * fpc :], sff)
+            got_t = window_search(xt.cuda(), nv.cuda(), *got[5:], wpc=nv.numel(), **kw)
+            want_t = window_search_plain(xt, nv, *want[5:], wpc=nv.numel(), **kw)
+            worst = max(worst, worst_of(got_t, want_t, what))
+    torch.cuda.synchronize()
+    log(f"[phase 2] window search == plain on {len(grid)} configs "
+        "(sfb 1..8 x rs 1..8 at C 1,2,3,8; sfb 8 at C 255)")
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phases 3-5
+# ---------------------------------------------------------------------------
+
+
+def fixtures(here):
+    from sea_codec_torch import EncoderSettings, sea_decode, sea_encode
+
+    for name in ("cbr_stereo_b3", "cbr_8ch_b8", "cbr_mono_b1_ragged"):
+        fx = np.load(os.path.join(here, "tests", "fixtures", name + ".npz"))
+        st = EncoderSettings(
+            scale_factor_bits=int(fx["sfb"]),
+            scale_factor_frames=int(fx["sff"]),
+            residual_bits=float(fx["rb"]),
+            frames_per_chunk=int(fx["fpc"]),
+        )
+        enc = sea_encode(fx["input"], int(fx["sample_rate"]), int(fx["channels"]), st)
+        check(enc == fx["encoded"].tobytes(), f"fixture {name}: encoded bytes differ")
+        dec = sea_decode(fx["encoded"].tobytes())
+        check(np.array_equal(dec.samples, fx["decoded"]), f"fixture {name}: PCM differs")
+    log("[phase 3] cbr fixtures: encode byte-equal, decode PCM-equal on the card")
+
+
+def music_signal(frames, seed):
+    """Stereo int16: layered sines and squares with a slow envelope, a noise
+    floor and a little clipping, the right channel delayed."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(frames, dtype=np.float64) / 44100.0
+    mono = np.zeros(frames)
+    for _ in range(6):
+        f = rng.uniform(50.0, 12000.0)
+        env = 0.5 + 0.5 * np.sin(2 * np.pi * rng.uniform(0.05, 0.5) * t + rng.uniform(0, 6.3))
+        wave = np.sin(2 * np.pi * f * t)
+        if rng.random() < 0.3:
+            wave = np.sign(wave)
+        mono += rng.uniform(0.05, 0.3) * env * wave
+    mono += rng.normal(0.0, 0.01, frames)
+    delay = 441
+    right = np.concatenate([np.zeros(delay), mono[:-delay]])
+    pcm = np.stack([mono, right], axis=1) * 32767.0
+    return np.clip(pcm, -32768, 32767).astype(np.int16).reshape(-1)
+
+
+def main_path(result):
+    import torch
+
+    from sea_codec_torch import EncoderSettings, sea_decode, sea_encode
+    from sea_codec_torch.batch import split_chunks
+    from sea_codec_torch.ops import fused_decode, window_search
+
+    frames, c, rate = 7_938_000, 2, 44100
+    pcm = music_signal(frames, seed=2024)
+    st = EncoderSettings()
+    fused_decode.launches = 0
+    window_search.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc = sea_encode(pcm, rate, c, st)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    dec = sea_decode(enc)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    result["launches"] = {
+        "fused_decode_cbr": fused_decode.launches,
+        "window_search": window_search.launches,
+    }
+    check(fused_decode.launches > 0, "main path never launched the fused decode kernel")
+    check(window_search.launches > 0, "main path never launched the window search kernel")
+
+    header, rect, tail = split_chunks(enc)
+    check(
+        (header.channels, header.sample_rate, header.total_frames, header.frames_per_chunk)
+        == (c, rate, frames, 5120),
+        f"header fields {header}",
+    )
+    check(rect.shape[0] == 1550 and len(tail) > 0, "expected 1550 full chunks and a tail")
+    check(header.chunk_size == 4 + 16 * c + (256 * c * 4 + 7) // 8 + 5120 * c * 3 // 8,
+          f"chunk_size {header.chunk_size}")
+    check(dec.samples.shape == (frames * c,), f"decoded length {dec.samples.shape}")
+    check(dec.sample_rate == rate and dec.channels == c, "decoded header")
+    t3 = time.perf_counter()
+    plain = sea_decode(enc, device="cpu")
+    t4 = time.perf_counter()
+    check(np.array_equal(dec.samples, plain.samples), "card decode != plain CPU decode")
+    err = (dec.samples.astype(np.float64) - pcm) / 32767.0
+    rms = float(np.sqrt(np.mean(err * err)))
+    psnr = -20.0 * np.log10(2.0 / rms)
+    msamples = frames * c / 1e6
+    log(
+        f"[phase 4] main path {frames} frames x {c} ch ({msamples} Msamples), "
+        f"{len(enc)} bytes: encode {t1 - t0:.4f} s ({msamples / (t1 - t0):.3f} Msamples/s), "
+        f"decode {t2 - t1:.4f} s ({msamples / (t2 - t1):.3f} Msamples/s), "
+        f"psnr {psnr:.3f} dB (-20*log10(2/rms), lower is better), "
+        f"plain CPU decode {t4 - t3:.3f} s, equal; launches {result['launches']}; "
+        f"card {result['card']}"
+    )
+    result["main"] = {
+        "encode_s": t1 - t0, "decode_s": t2 - t1, "psnr_db": psnr,
+        "bytes": len(enc), "plain_cpu_decode_s": t4 - t3,
+    }
+    return pcm, enc
+
+
+def decode_at_main_shape(enc, result):
+    """The decode kernel on the main path's full chunks: equal to its plain
+    version, and its time beside the plain version's."""
+    import torch
+
+    from sea_codec_torch.batch import parse_full_chunks, split_chunks
+    from sea_codec_torch.ops.fused_decode import decode_cbr_fused, decode_cbr_plain
+
+    header, rect, _tail = split_chunks(enc)
+    b = parse_full_chunks(rect, header)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in (b.res_bytes, b.sf, b.hist, b.wts)]
+    kw = dict(sfb=b.scale_factor_bits, rs=b.residual_size, sff=b.scale_factor_frames,
+              frames=header.frames_per_chunk)
+    n, _w, c = b.sf.shape
+    f = header.frames_per_chunk
+    ms, got = cuda_ms(lambda: decode_cbr_fused(*args, **kw), reps=20)
+    plain_ms, want = cuda_ms(lambda: decode_cbr_plain(*args, **kw), reps=1)
+    err = worst_of([got], [want], "decode at the main-path shape")
+    log(f"[phase 5] decode kernel == plain at {[n, f, c]}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms")
+    return err, {
+        "name": "fused_decode_cbr", "route": "cuda",
+        "source": "sea_codec_torch/csrc/fused_decode_cbr.cu",
+        "replaces": "sea_codec_tpu/ops/pallas_fused_decode.py:130",
+        "launches": result["launches"]["fused_decode_cbr"],
+        "ms": ms, "plain_ms": plain_ms, "shape": [n, f, c],
+        "bytes": b.res_bytes.nbytes + b.sf.nbytes + 2 * b.hist.size * 4 + n * f * c * 2,
+        "ops": tuple(n * f * c * k for k in DECODE_OPS_PER_SAMPLE),
+        # every stream is independent and all are resident at once
+        "chain_cycles": f * chain_cycles(DECODE_FRAME_CHAIN),
+    }
+
+
+def search_at_main_shape(pcm, enc, result):
+    """The search kernel at the main path's shapes, held three ways: its run
+    over all full chunks gives the scale factors, codes and chunk-entry
+    states the main path wrote; on the first two chunks (one chunk boundary)
+    and on the ragged tail from the carried state, every output equals the
+    plain version's."""
+    import torch
+
+    from sea_codec_torch import EncoderSettings
+    from sea_codec_torch.batch import parse_full_chunks, split_chunks
+    from sea_codec_torch.container import SeaChunk
+    from sea_codec_torch.ops import bitpack, lms
+    from sea_codec_torch.ops.window_search import window_search, window_search_plain
+
+    header, rect, tail = split_chunks(enc)
+    b = parse_full_chunks(rect, header)
+    nc, f, c = rect.shape[0], header.frames_per_chunk, header.channels
+    es = EncoderSettings()
+    sfb, sff, rs = es.scale_factor_bits, es.scale_factor_frames, int(es.residual_bits)
+    wpc = f // sff
+    skw = dict(sfb=sfb, rs=rs, sff=sff, wpc=wpc)
+    x = torch.from_numpy(pcm[: nc * f * c].reshape(nc * f, c)).cuda()
+    init = (lms.initial_history(c, "cuda"), lms.initial_weights(c, "cuda"),
+            torch.zeros(c, dtype=torch.int32, device="cuda"))
+
+    ms, full = cuda_ms(lambda: window_search(x, None, *init, **skw), reps=2)
+    sf, codes, _ranks, ehist, ewts = (t.cpu().numpy() for t in full[:5])
+    i16 = lambda a: a.astype(np.int16).astype(np.int32)  # the chunk header's width
+    check(np.array_equal(sf.reshape(nc, wpc, c), b.sf), "search: scale factors != main-path file")
+    check(np.array_equal(i16(ehist), b.hist) and np.array_equal(i16(ewts), b.wts),
+          "search: chunk-entry LMS states != main-path file")
+    check(np.array_equal(codes.reshape(nc, f * c), bitpack.unpack_bits_rows(b.res_bytes, rs, f * c)),
+          "search: codes != main-path file")
+
+    prefix = x[: 2 * f]
+    prefix_ms, got = cuda_ms(lambda: window_search(prefix, None, *init, **skw), reps=3)
+    plain_ms, want = cuda_ms(lambda: window_search_plain(prefix, None, *init, **skw), reps=1)
+    worst = worst_of(got, want, "search on the first two main-path chunks")
+
+    tail_frames = header.total_frames - nc * f
+    xt, nv = tail_windows(pcm[nc * f * c :].reshape(tail_frames, c), sff)
+    tkw = dict(skw, wpc=nv.numel())
+    got_t = window_search(xt.cuda(), nv.cuda(), *full[5:], **tkw)
+    want_t = window_search_plain(xt.cuda(), nv.cuda(), *full[5:], **tkw)
+    worst = max(worst, worst_of(got_t, want_t, "search on the main-path tail"))
+    chunk = SeaChunk.from_bytes(tail, header, tail_frames)
+    check(np.array_equal(got_t[0].cpu().numpy().reshape(-1), chunk.scale_factors)
+          and np.array_equal(got_t[1][:tail_frames].cpu().numpy().reshape(-1), chunk.residuals)
+          and np.array_equal(i16(full[5].cpu().numpy()), chunk.lms_history),
+          "search: tail chunk != main-path file")
+    log(f"[phase 5] search kernel == main-path file over {[nc * f, c]} ({ms:.3f} ms); "
+        f"== plain on two chunks {[2 * f, c]} (kernel {prefix_ms:.3f} ms, plain {plain_ms:.1f} ms) "
+        f"and on the {tail_frames}-frame tail ({nv.numel()} masked windows)")
+    s = 1 << sfb
+    nw = nc * wpc
+    return worst, {
+        "name": "window_search", "route": "cuda",
+        "source": "sea_codec_torch/csrc/window_search.cu",
+        "replaces": "sea_codec_tpu/ops/pallas_encode.py:491",
+        "launches": result["launches"]["window_search"],
+        "ms": ms, "plain_ms": plain_ms, "ms_plain_shape": prefix_ms,
+        "plain_shape": [2 * f, c], "shape": [nc * f, c],
+        "bytes": x.numel() * 2 + x.numel() + nw * c * (1 + 8) + 2 * nc * c * 16,
+        "ops": tuple(x.numel() * s * k for k in SEARCH_OPS_PER_STEP),
+        # one block per channel, all resident: one channel's chain
+        "chain_cycles": nc * f * chain_cycles(SEARCH_STEP_CHAIN)
+        + nw * chain_cycles(SEARCH_WINDOW_CHAIN),
+    }
+
+
+def run(here):
+    import torch
+
+    from sea_codec_torch.ops import cuda_build
+
+    result = {}
+    t0 = time.perf_counter()
+    cuda_build.build_all()
+    log(f"[phase 1] built {len(cuda_build.KERNEL_SOURCES)} kernels in {time.perf_counter() - t0:.2f} s")
+    result["card"] = card_line()
+    log(f"[phase 1] card: {result['card']}; torch {torch.__version__} cuda {torch.version.cuda}")
+
+    rng = np.random.default_rng(7)
+    errs = {
+        "fused_decode_cbr": max(decode_sweep(rng), dequant_exhaustive()),
+        "window_search": search_sweep(rng),
+    }
+    fixtures(here)
+    pcm, enc = main_path(result)
+    clock_mhz = float(smi("clocks.max.sm", ",nounits"))
+    kernels = []
+    for err, k in (decode_at_main_shape(enc, result), search_at_main_shape(pcm, enc, result)):
+        k["max_abs_err"] = max(errs[k["name"]], err)
+        bounds(k, clock_mhz)
+        kernels.append(k)
+        log(f"[phase 5] {k['name']}: {k['ms']:.4f} ms; bound {k['bound_ms']:.4f} ms "
+            f"(by {k['bound_by']}); chain {k['chain_ms']:.4f} ms at {clock_mhz} MHz")
+    log("[phase 5] kernels: " + ", ".join(
+        f"{k['name']} launches={k['launches']} equal to plain: true" for k in kernels))
+    return kernels, result
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke test needs one card", file=sys.stderr)
+        return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    try:
+        import sea_codec_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the sea_codec_torch package is missing: {e}", file=sys.stderr)
+        return 3
+    t0 = time.perf_counter()
+    try:
+        kernels, result = run(here)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+        return 1
+    log(f"[done] {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(result["card"])
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

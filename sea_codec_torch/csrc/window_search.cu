@@ -1,0 +1,233 @@
+// Encoder scale-factor search for Hopper (sm_90a).
+//
+// Replaces the TPU kernel sea_codec_tpu/ops/pallas_encode.py
+// run_window_search (built by _make_kernel). Reference semantics
+// (src/codec/encoder_base.rs): for every window of sff frames, each of the
+// S = 2^sfb candidate scale factors runs, per sample,
+//   predict -> sea_div -> clamp -> zig-zag quantize -> dequant ->
+//   reconstruct -> LMS update,
+// accumulating a u64 rank = sum(err^2 + weights_penalty). The winner is the
+// lexicographic minimum of (rank, (s - prev_sf) mod S) -- the reference's
+// first strict minimum in rotated order from the previous winner -- and
+// every candidate of the next window restarts from the winner's LMS state.
+//
+// What bounds it on this card: the serial chain. Windows depend on the
+// previous winner, so a channel is one chain of (windows x sff) dependent
+// sample steps; candidates and channels are the only parallelism. Design:
+// one block per channel, one thread per candidate (S <= 256), and one launch
+// walks all windows of all chunks in order, writing each chunk's entry LMS
+// state at its first window. The argmin is a warp-shuffle reduction plus a
+// shared-memory pass over the warps; the winner's state and codes pass
+// through shared memory (codes as a u8 [sff, S] buffer). The TPU kernel's
+// VMEM bounds (c <= 128 or 512 lanes, sfb <= 7) do not apply.
+//
+// Arithmetic follows the reference's integer widths: sea_div in int64, the
+// rank in wrapping u64, the int32 LMS dot and weight updates wrapping
+// (computed in uint32). The dequant f32 steps are separate roundings
+// (__fmul_rn/__fadd_rn), as in the table build. An optional per-window
+// valid-frame count masks ragged tail windows: masked steps add no rank and
+// leave the LMS frozen, while their codes are still computed, as in the
+// reference kernels.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ bool key_less(unsigned long long r1, int o1,
+                                         unsigned long long r2, int o2) {
+  return r1 < r2 || (r1 == r2 && o1 < o2);
+}
+
+__global__ void window_search_kernel(
+    const int16_t* __restrict__ samples,  // [nw*sff, c] interleaved PCM
+    const int32_t* __restrict__ n_valid,  // [nw] valid frames, or nullptr
+    const int32_t* __restrict__ hist_in,  // [c, 4]
+    const int32_t* __restrict__ wts_in,   // [c, 4]
+    const int32_t* __restrict__ prev_in,  // [c]
+    const float* __restrict__ sfval,      // [s] scale-factor values for rs
+    const int32_t* __restrict__ recip,    // [s] reciprocals for rs
+    const uint8_t* __restrict__ qtab,     // [2*climit+1] zig-zag table for rs
+    uint8_t* __restrict__ sf_out,         // [nw, c]
+    uint8_t* __restrict__ codes_out,      // [nw*sff, c]
+    unsigned long long* __restrict__ ranks_out,  // [nw, c]
+    int32_t* __restrict__ ehist,          // [ceil(nw/wpc), c, 4]
+    int32_t* __restrict__ ewts,           // [ceil(nw/wpc), c, 4]
+    int32_t* __restrict__ hist_out,       // [c, 4]
+    int32_t* __restrict__ wts_out,        // [c, 4]
+    int32_t* __restrict__ prev_out,       // [c]
+    int c, int s, int sff, int nw, int wpc, int rs, float c0, float stepf,
+    float endv, int kmax) {
+  extern __shared__ unsigned char smem[];
+  int32_t* smp_s = reinterpret_cast<int32_t*>(smem);
+  const int climit = 1 << rs;
+  uint8_t* qtab_s = smem + sizeof(int32_t) * sff;
+  uint8_t* qbuf = qtab_s + 2 * climit + 1;  // [sff, s] candidate codes
+  __shared__ int32_t st_s[8];
+  __shared__ unsigned long long warp_rank[8];
+  __shared__ int warp_rot[8];
+  __shared__ int best_s;
+  __shared__ unsigned long long best_rank_s;
+
+  const int ch = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const bool active = tid < s;
+
+  for (int i = tid; i < 2 * climit + 1; i += blockDim.x) qtab_s[i] = qtab[i];
+  int32_t h0 = hist_in[ch * 4], h1 = hist_in[ch * 4 + 1];
+  int32_t h2 = hist_in[ch * 4 + 2], h3 = hist_in[ch * 4 + 3];
+  int32_t w0 = wts_in[ch * 4], w1 = wts_in[ch * 4 + 1];
+  int32_t w2 = wts_in[ch * 4 + 2], w3 = wts_in[ch * 4 + 3];
+  int prev = prev_in[ch];
+  const float my_sfval = active ? sfval[tid] : 0.f;
+  const long long my_recip = active ? recip[tid] : 1;
+
+  for (int wi = 0; wi < nw; ++wi) {
+    for (int t = tid; t < sff; t += blockDim.x)
+      smp_s[t] = samples[(static_cast<size_t>(wi) * sff + t) * c + ch];
+    if (tid == 0 && wi % wpc == 0) {
+      const size_t e = (static_cast<size_t>(wi / wpc) * c + ch) * 4;
+      ehist[e] = h0; ehist[e + 1] = h1; ehist[e + 2] = h2; ehist[e + 3] = h3;
+      ewts[e] = w0; ewts[e + 1] = w1; ewts[e + 2] = w2; ewts[e + 3] = w3;
+    }
+    __syncthreads();
+    const int nv = n_valid ? n_valid[wi] : sff;
+
+    int32_t a0 = h0, a1 = h1, a2 = h2, a3 = h3;
+    int32_t v0 = w0, v1 = w1, v2 = w2, v3 = w3;
+    unsigned long long rank = 0;
+    if (active) {
+      for (int t = 0; t < sff; ++t) {
+        const int32_t smp = smp_s[t];
+        const uint32_t dot = static_cast<uint32_t>(v0) * static_cast<uint32_t>(a0) +
+                             static_cast<uint32_t>(v1) * static_cast<uint32_t>(a1) +
+                             static_cast<uint32_t>(v2) * static_cast<uint32_t>(a2) +
+                             static_cast<uint32_t>(v3) * static_cast<uint32_t>(a3);
+        const int32_t pred = static_cast<int32_t>(dot) >> 13;
+        const int32_t residual = smp - pred;
+        // sea_div (encoder_base.rs:22-26): round-half-away fixed point
+        const long long n = (static_cast<long long>(residual) * my_recip + (1 << 15)) >> 16;
+        const int sv = (residual > 0) - (residual < 0);
+        const int sn = (n > 0) - (n < 0);
+        const int32_t scaled = static_cast<int32_t>(n + (sv - sn));
+        const int32_t clamped = min(max(scaled, -climit), climit);
+        const int q = qtab_s[clamped + climit];
+        qbuf[t * s + tid] = static_cast<uint8_t>(q);
+        const int k = q >> 1;
+        float curve = __fadd_rn(0.5f, __fmul_rn(static_cast<float>(k), stepf));
+        if (k == kmax) curve = endv;
+        if (k == 0) curve = c0;
+        const int dq_abs =
+            static_cast<int>(floorf(__fadd_rn(__fmul_rn(my_sfval, curve), 0.5f)));
+        const int32_t dq = (q & 1) ? -dq_abs : dq_abs;
+        const int32_t recon = min(max(pred + dq, -32768), 32767);
+        if (t < nv) {
+          const long long err = smp - recon;
+          // weights penalty (lms.rs:53-62) of the weights before the update
+          const unsigned long long sq =
+              static_cast<unsigned long long>(static_cast<long long>(v0) * v0) +
+              static_cast<unsigned long long>(static_cast<long long>(v1) * v1) +
+              static_cast<unsigned long long>(static_cast<long long>(v2) * v2) +
+              static_cast<unsigned long long>(static_cast<long long>(v3) * v3);
+          long long p = (static_cast<long long>(sq) >> 18) - 0x8ff;
+          if (p < 0) p = 0;
+          rank += static_cast<unsigned long long>(err * err) +
+                  static_cast<unsigned long long>(p) * static_cast<unsigned long long>(p);
+          const uint32_t delta = static_cast<uint32_t>(dq >> 4);
+          v0 = static_cast<int32_t>(static_cast<uint32_t>(v0) + (a0 < 0 ? 0u - delta : delta));
+          v1 = static_cast<int32_t>(static_cast<uint32_t>(v1) + (a1 < 0 ? 0u - delta : delta));
+          v2 = static_cast<int32_t>(static_cast<uint32_t>(v2) + (a2 < 0 ? 0u - delta : delta));
+          v3 = static_cast<int32_t>(static_cast<uint32_t>(v3) + (a3 < 0 ? 0u - delta : delta));
+          a0 = a1;
+          a1 = a2;
+          a2 = a3;
+          a3 = recon;
+        }
+      }
+    }
+
+    // lexicographic argmin over (rank, rotated candidate index)
+    unsigned long long r = active ? rank : ~0ull;
+    int o = active ? ((tid - prev) & (s - 1)) : 0x7fffffff;
+    for (int off = 16; off > 0; off >>= 1) {
+      const unsigned long long r2 = __shfl_down_sync(kFull, r, off);
+      const int o2 = __shfl_down_sync(kFull, o, off);
+      if (key_less(r2, o2, r, o)) {
+        r = r2;
+        o = o2;
+      }
+    }
+    if (lane == 0) {
+      warp_rank[warp] = r;
+      warp_rot[warp] = o;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      for (int i = 1; i < nwarps; ++i) {
+        if (key_less(warp_rank[i], warp_rot[i], r, o)) {
+          r = warp_rank[i];
+          o = warp_rot[i];
+        }
+      }
+      best_s = (o + prev) & (s - 1);
+      best_rank_s = r;
+    }
+    __syncthreads();
+    const int best = best_s;
+    if (tid == best) {
+      st_s[0] = a0; st_s[1] = a1; st_s[2] = a2; st_s[3] = a3;
+      st_s[4] = v0; st_s[5] = v1; st_s[6] = v2; st_s[7] = v3;
+    }
+    __syncthreads();
+    h0 = st_s[0]; h1 = st_s[1]; h2 = st_s[2]; h3 = st_s[3];
+    w0 = st_s[4]; w1 = st_s[5]; w2 = st_s[6]; w3 = st_s[7];
+    prev = best;
+    if (tid == 0) {
+      sf_out[static_cast<size_t>(wi) * c + ch] = static_cast<uint8_t>(best);
+      ranks_out[static_cast<size_t>(wi) * c + ch] = best_rank_s;
+    }
+    for (int t = tid; t < sff; t += blockDim.x)
+      codes_out[(static_cast<size_t>(wi) * sff + t) * c + ch] = qbuf[t * s + best];
+    __syncthreads();
+  }
+  if (tid == 0) {
+    hist_out[ch * 4] = h0; hist_out[ch * 4 + 1] = h1;
+    hist_out[ch * 4 + 2] = h2; hist_out[ch * 4 + 3] = h3;
+    wts_out[ch * 4] = w0; wts_out[ch * 4 + 1] = w1;
+    wts_out[ch * 4 + 2] = w2; wts_out[ch * 4 + 3] = w3;
+    prev_out[ch] = prev;
+  }
+}
+
+}  // namespace
+
+extern "C" int sea_window_search(
+    const void* samples, const void* n_valid, const void* hist_in,
+    const void* wts_in, const void* prev_in, const void* sfval,
+    const void* recip, const void* qtab, void* sf_out, void* codes_out,
+    void* ranks_out, void* ehist, void* ewts, void* hist_out, void* wts_out,
+    void* prev_out, int c, int s, int sff, int nw, int wpc, int rs, float c0,
+    float stepf, float endv, int kmax, void* stream) {
+  const int threads = s < 32 ? 32 : s;
+  const size_t smem = sizeof(int32_t) * sff + (2 << rs) + 1 +
+                      static_cast<size_t>(sff) * s;
+  cudaFuncSetAttribute(window_search_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(smem));
+  window_search_kernel<<<c, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int16_t*>(samples), static_cast<const int32_t*>(n_valid),
+      static_cast<const int32_t*>(hist_in), static_cast<const int32_t*>(wts_in),
+      static_cast<const int32_t*>(prev_in), static_cast<const float*>(sfval),
+      static_cast<const int32_t*>(recip), static_cast<const uint8_t*>(qtab),
+      static_cast<uint8_t*>(sf_out), static_cast<uint8_t*>(codes_out),
+      static_cast<unsigned long long*>(ranks_out), static_cast<int32_t*>(ehist),
+      static_cast<int32_t*>(ewts), static_cast<int32_t*>(hist_out),
+      static_cast<int32_t*>(wts_out), static_cast<int32_t*>(prev_out), c, s,
+      sff, nw, wpc, rs, c0, stepf, endv, kmax);
+  return static_cast<int>(cudaGetLastError());
+}

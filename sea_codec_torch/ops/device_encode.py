@@ -1,0 +1,103 @@
+"""The encoder's brute-force scale-factor search in plain PyTorch.
+
+Reference semantics (``src/codec/encoder_base.rs``): for every scale-factor
+window (``scale_factor_frames`` frames), try all 2^sfb candidate scale
+factors; for each, run the per-sample loop predict -> scale (fixed-point
+division) -> clamp -> quantize -> dequantize -> reconstruct -> LMS-update,
+accumulating a rank = sum of squared error + weight penalty; keep the
+candidate with the lowest rank, visiting candidates in rotated order starting
+from the previous window's winner (ties resolve to the first minimum in that
+order, ``encoder_base.rs:116-140``).
+
+Here the candidates are a batch axis (row s *is* scale factor s, and the
+rotated order is reproduced by a lexicographic argmin over (rank,
+(s - prev_sf) mod S)), channels are a second batch axis, and windows and
+samples are Python loops. The reference's early abort never changes the
+argmin and is dropped. Ranks are u64 with wrap-around, held as int64 with
+the same bits and compared unsigned by flipping the sign bit. This is the
+plain version of the window-search kernel (``ops.window_search``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import lms, tables
+from .device_decode import dequant_values
+
+_SIGN64 = -(1 << 63)
+
+
+def sea_div(v: torch.Tensor, recip: torch.Tensor) -> torch.Tensor:
+    """Round-half-away fixed-point division by scale factor (reference
+    ``encoder_base.rs:22-26``), in its int64 form."""
+    n = (v * recip + (1 << 15)) >> 16
+    return n + (torch.sign(v) - torch.sign(n))
+
+
+def encode_windows_fn(samples, n_valid, hist0, wts0, prev_sf0, *, sfb, rs, sff):
+    """Run the scale-factor search over consecutive windows of one chunk.
+
+    ``samples`` [W*sff, C] (any integer dtype), ``n_valid`` a sequence of W
+    host ints (valid frames per window), ``hist0``/``wts0`` int32[C, 4],
+    ``prev_sf0`` int32[C], constant residual size ``rs``. Returns
+    (sf uint8[W, C], codes uint8[W*sff, C], ranks int64[W, C],
+    hist int32[C, 4], wts int32[C, 4], prev_sf int32[C])."""
+    device = samples.device
+    s = 1 << sfb
+    c = samples.shape[1]
+    w = samples.shape[0] // sff
+    sfval_t, recip_t, c0_t, stepf_t, endv_t, kmax_t, _cl = tables.rs_tables(sfb)
+    consts = (float(c0_t[rs]), float(stepf_t[rs]), float(endv_t[rs]), int(kmax_t[rs]))
+    sfval = torch.as_tensor(sfval_t[rs], device=device)[:, None]  # [S, 1]
+    recip = torch.as_tensor(recip_t[rs], device=device).to(torch.int64)[:, None]
+    qtab = torch.as_tensor(tables.quant_row(rs).astype("int64"), device=device)
+    climit = 1 << rs
+    cand = torch.arange(s, device=device)[:, None]  # [S, 1]
+    x = samples.to(torch.int64).reshape(w, sff, c)
+    hist = hist0.to(torch.int64)
+    wts = wts0.to(torch.int64)
+    prev = prev_sf0.to(torch.int64)
+    sf_out, codes_out, ranks_out = [], [], []
+    for wi in range(w):
+        hh = hist.expand(s, c, 4)
+        ww = wts.expand(s, c, 4)
+        rank = torch.zeros((s, c), dtype=torch.int64, device=device)
+        qs = []
+        for t in range(sff):
+            smp = x[wi, t]  # [C]
+            pred = lms.predict(hh, ww)  # [S, C]
+            scaled = sea_div(smp - pred, recip)
+            q = qtab[scaled.clamp(-climit, climit) + climit]
+            qs.append(q)
+            if t >= n_valid[wi]:
+                continue  # masked step: codes only, state frozen
+            dq = dequant_values(q, sfval, *consts)
+            recon = lms.clamp_i16(pred + dq)
+            err = smp - recon
+            rank = rank + err * err + lms.weights_penalty(ww)
+            hh, ww = lms.update(hh, ww, recon, dq)
+        # first minimum in rotated order: lexicographic (unsigned rank, rot)
+        key = rank ^ _SIGN64
+        tie = key == key.min(dim=0).values
+        rot = torch.where(tie, (cand - prev) & (s - 1), s)
+        best = (rot.min(dim=0).values + prev) & (s - 1)  # [C]
+        idx = best[None, :]
+        sf_out.append(best.to(torch.uint8))
+        ranks_out.append(rank.gather(0, idx)[0])
+        codes_out.append(torch.stack(qs).gather(1, idx[None].expand(sff, 1, c))[:, 0])
+        hist = hh.gather(0, idx[..., None].expand(1, c, 4))[0]
+        wts = ww.gather(0, idx[..., None].expand(1, c, 4))[0]
+        prev = best
+    if w == 0:
+        empty = torch.zeros((0, c), dtype=torch.uint8, device=device)
+        return empty, empty, torch.zeros((0, c), dtype=torch.int64, device=device), hist0, wts0, prev_sf0
+    i32 = torch.int32
+    return (
+        torch.stack(sf_out),
+        torch.cat(codes_out).to(torch.uint8),
+        torch.stack(ranks_out),
+        hist.to(i32),
+        wts.to(i32),
+        prev.to(i32),
+    )

@@ -1,0 +1,96 @@
+"""Fused CBR decode: packed residual bytes -> int16 PCM in one kernel.
+
+Replaces the TPU kernel ``sea_codec_tpu/ops/pallas_fused_decode.py``
+``decode_cbr_fused_single``. On a CUDA tensor, ``decode_cbr_fused`` launches
+``csrc/fused_decode_cbr.cu`` (one block per chunk, one thread per channel
+stream; see the source note there). On a CPU tensor it runs the plain
+PyTorch version, ``decode_cbr_plain``. ``launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import cuda_build, tables
+from .device_decode import decode_chunks_fn, unpack_const
+
+launches = 0
+
+
+def decode_cbr_plain(res_bytes, sf_codes, hist0, wts0, *, sfb, rs, sff, frames):
+    """Plain PyTorch version of the kernel: same inputs, same output."""
+    n, _w, c = sf_codes.shape
+    codes = unpack_const(res_bytes, rs, frames * c).reshape(n, frames, c)
+    return decode_chunks_fn(codes, sf_codes, hist0, wts0, sfb, sff, rs)
+
+
+def _check_inputs(res_bytes, sf_codes, hist0, wts0, sfb, rs, sff, frames):
+    n, w, c = sf_codes.shape
+    if not (1 <= sfb <= 8 and 1 <= rs <= 8 and sff >= 1 and 1 <= c <= 255):
+        raise ValueError(f"bad decode config sfb={sfb} rs={rs} sff={sff} c={c}")
+    if w != -(-frames // sff):
+        raise ValueError(f"sf has {w} windows, {frames} frames need {-(-frames // sff)}")
+    need = -(-(frames * c * rs) // 8)
+    if res_bytes.dim() != 2 or res_bytes.shape[0] != n or res_bytes.shape[1] < need:
+        raise ValueError(f"res_bytes must be [{n}, >={need}], got {tuple(res_bytes.shape)}")
+    for name, t, dtype in (
+        ("res_bytes", res_bytes, torch.uint8),
+        ("sf_codes", sf_codes, torch.uint8),
+        ("hist0", hist0, torch.int32),
+        ("wts0", wts0, torch.int32),
+    ):
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.device != sf_codes.device:
+            raise ValueError(f"{name} is on {t.device}, sf_codes on {sf_codes.device}")
+    if hist0.shape != (n, c, 4) or wts0.shape != (n, c, 4):
+        raise ValueError("hist0/wts0 must be [N, C, 4]")
+    return n, w, c, need
+
+
+def decode_cbr_fused(res_bytes, sf_codes, hist0, wts0, *, sfb, rs, sff, frames):
+    """Decode N full-size CBR chunks -> int16[N, frames, C].
+
+    ``res_bytes`` uint8[N, B >= ceil(frames*C*rs/8)], ``sf_codes``
+    uint8[N, ceil(frames/sff), C], ``hist0``/``wts0`` int32[N, C, 4]."""
+    global launches
+    n, w, c, need = _check_inputs(res_bytes, sf_codes, hist0, wts0, sfb, rs, sff, frames)
+    device = sf_codes.device
+    if device.type == "cpu":
+        return decode_cbr_plain(
+            res_bytes, sf_codes, hist0, wts0, sfb=sfb, rs=rs, sff=sff, frames=frames
+        )
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    sfval_t, _recip, c0_t, stepf_t, endv_t, kmax_t, _cl = tables.rs_tables(sfb)
+    sfval = torch.as_tensor(sfval_t[rs], device=device)
+    res_bytes = res_bytes.contiguous()
+    sf_codes = sf_codes.contiguous()
+    hist0 = hist0.contiguous()
+    wts0 = wts0.contiguous()
+    out = torch.empty((n, frames, c), dtype=torch.int16, device=device)
+    if n == 0:
+        return out
+    fn = _launcher()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(
+            res_bytes.data_ptr(), sf_codes.data_ptr(), hist0.data_ptr(),
+            wts0.data_ptr(), sfval.data_ptr(), out.data_ptr(),
+            n, res_bytes.shape[1], need, c, w, frames, 1 << sfb, rs, sff,
+            float(c0_t[rs]), float(stepf_t[rs]), float(endv_t[rs]), int(kmax_t[rs]),
+            stream,
+        )
+    cuda_build.check(rc, "sea_fused_decode_cbr")
+    launches += 1
+    return out
+
+
+def _launcher():
+    fn = cuda_build.load("fused_decode_cbr").sea_fused_decode_cbr
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, f, f, i, p]
+    fn.restype = ctypes.c_int
+    return fn
