@@ -4,27 +4,33 @@
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Phases, in order; any failure exits non-zero:
 
-1. Build the CUDA kernels from ``sea_codec_torch/csrc`` (one nvcc each, in
-   parallel) and print the card's name and power limit.
+1. Build the three CUDA kernels from ``sea_codec_torch/csrc`` (one nvcc
+   each, in parallel) and print the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the same inputs,
    bit for bit (tolerance 0: an integer codec): the fused CBR decode over
-   rs 1..8 x sfb {1,4,8} x C {1,2,8,255} with random bytes and LMS states,
-   an exhaustive dequant check against the table build, and the window
-   search over sfb 1..8 x rs 1..8 on clipping stress signals, with and
-   without a ragged tail.
-3. The committed CBR fixtures: ``sea_encode`` gives their bytes and
-   ``sea_decode`` their PCM.
-4. The main path at real size: a 3-minute 44.1 kHz stereo signal
+   rs 1..8 x sfb {1,4,8} x C {1,2,8,255} with random bytes and LMS states;
+   the fused VBR decode over random per-window sizes 1..8 x sfb {1,4,8} x
+   C {1,2,8,255} with partial last windows; for both, an exhaustive dequant
+   check against the table build; the window search over sfb 1..8 x rs
+   1..8 on clipping stress signals, with and without a ragged tail, and in
+   its VBR forms (per-window sizes; ranks-only, also against the full form).
+3. The committed CBR and VBR fixtures: ``sea_encode`` gives their bytes and
+   ``sea_decode`` their PCM; tail-only 255-channel files equal to plain.
+4. The main paths at real size: a 3-minute 44.1 kHz stereo signal
    (7,938,000 frames: 1,550 full chunks and a ragged tail) through
-   ``sea_encode`` then ``sea_decode`` with default settings on the card,
-   checked against the plain decode on the CPU, with both kernels' launch
-   counts read around this run only.
-5. The kernels at the main-path shapes: the decode kernel equal to its
-   plain version on all full chunks; the search kernel equal to the file's
-   scale factors, codes and chunk states, and to its plain version on the
-   first two chunks and on the masked tail. Times of each kernel and its
-   plain version, beside two least times for the same work: the roofline
-   (bytes or operations) and the serial chain at the highest SM clock.
+   ``sea_encode`` then ``sea_decode`` on the card, once with default
+   settings (CBR) and once with VBR at 2.5 bits; each checked against the
+   plain decode on the CPU, with the kernels' launch counts set to 0 just
+   before each path and read just after.
+5. The kernels at the main-path shapes: each decode kernel equal to its
+   plain version on all full chunks; the search kernel equal to the CBR
+   file's scale factors, codes and chunk states, and to its plain version
+   on the first two chunks and on the masked tail; its VBR forms equal to
+   the VBR file (the host pack of their outputs giving its bytes), to the
+   plain version on the first two chunks and on the tail. Times of each
+   kernel and its plain version, beside two least times for the same work:
+   the roofline (bytes or operations) and the serial chain at the highest
+   SM clock; the VBR host pack's time on its own line.
 
 The last lines are the kernels' JSON line, the card line and the result
 line. Imports nothing of JAX or of the JAX package.
@@ -51,6 +57,11 @@ H100_INT32_OPS_PER_S = H100_F32_OPS_PER_S / 4
 # (search), counted from the kernels' inner loops in sea_codec_torch/csrc
 DECODE_OPS_PER_SAMPLE = (34, 5)
 SEARCH_OPS_PER_STEP = (54, 5)
+# the VBR decode's frame loop: the CBR count less the offset multiply, plus
+# the byte-index clamp and the cursor step; and per window, per size read,
+# a load, an add and a select-add for wsum and the prefix
+VBR_DECODE_OPS_PER_SAMPLE = (35, 5)
+VBR_DECODE_OPS_PER_SIZE = 3
 
 # The serial chain each kernel walks, as (integer/f32 instructions,
 # shared-memory loads, shuffles or barriers) that depend on each other in
@@ -225,6 +236,77 @@ def dequant_exhaustive():
     return worst
 
 
+def random_vbr_batch(rng, n, c, sfb, frames, sff):
+    """Random VBR chunks: per-(window, channel) sizes 1..8, rows as long as
+    the size table needs (the last window partial when sff does not divide
+    frames), random scale factors and LMS entry states."""
+    w = -(-frames // sff)
+    rs = rng.integers(1, 9, (n, w, c), dtype=np.uint8)
+    fiw = np.clip(frames - np.arange(w) * sff, 0, sff)
+    bits = (rs.astype(np.int64) * fiw[None, :, None]).sum(axis=(1, 2))
+    res = rng.integers(0, 256, (n, int(-(-bits.max() // 8))), dtype=np.uint8)
+    sf = rng.integers(0, 1 << sfb, (n, w, c), dtype=np.uint8)
+    hist = rng.integers(-32768, 32768, (n, c, 4)).astype(np.int32)
+    wts = rng.integers(-(1 << 24), 1 << 24, (n, c, 4)).astype(np.int32)
+    return res, sf, rs, hist, wts
+
+
+def vbr_decode_sweep(rng):
+    import torch
+
+    from sea_codec_torch.ops.fused_decode_vbr import decode_vbr_fused, decode_vbr_plain
+
+    worst = 0
+    cases = 0
+    for sfb in (1, 4, 8):
+        for c in (1, 2, 8, 255):
+            for frames, sff in ((200, 20), (197, 20), (61, 7), (40, 1)):
+                if c == 255 and frames > 61:
+                    continue
+                cpu = [torch.from_numpy(a) for a in random_vbr_batch(rng, 3, c, sfb, frames, sff)]
+                kw = dict(sfb=sfb, sff=sff, frames=frames)
+                got = decode_vbr_fused(*[t.cuda() for t in cpu], **kw)
+                want = decode_vbr_plain(*cpu, **kw)
+                worst = max(worst, worst_of([got], [want], f"vbr decode sfb={sfb} c={c} frames={frames}"))
+                cases += 1
+    torch.cuda.synchronize()
+    log(f"[phase 2] fused VBR decode == plain on {cases} configs (sizes 1..8 per window x "
+        "sfb 1,4,8 x C 1,2,8,255, partial last windows)")
+    return worst
+
+
+def vbr_dequant_exhaustive():
+    """The VBR kernel's dequant for every (sfb, rs, sf, code): frame 0 of
+    zero-state streams, each channel its own size within one window."""
+    import torch
+
+    from sea_codec_torch.ops import bitpack, tables
+    from sea_codec_torch.ops.fused_decode_vbr import decode_vbr_fused, decode_vbr_plain
+
+    worst = 0
+    c = 255
+    for sfb in range(1, 9):
+        s = 1 << sfb
+        items = [(rs, sf, q) for rs in range(1, 9) for sf in range(s) for q in range(1 << rs)]
+        items += [(1, 0, 0)] * (-len(items) % c)
+        rs_a, sf_a, q_a = (np.asarray(v).reshape(-1, c) for v in zip(*items))
+        n = rs_a.shape[0]
+        rows = [bitpack.pack_bits(q, r) for q, r in zip(q_a, rs_a)]
+        res = np.zeros((n, max(len(r) for r in rows)), np.uint8)
+        for i, r in enumerate(rows):
+            res[i, : len(r)] = r
+        zeros = np.zeros((n, c, 4), np.int32)
+        cpu = [torch.from_numpy(a) for a in (
+            res, sf_a.astype(np.uint8)[:, None], rs_a.astype(np.uint8)[:, None], zeros, zeros.copy())]
+        kw = dict(sfb=sfb, sff=1, frames=1)
+        got = decode_vbr_fused(*[t.cuda() for t in cpu], **kw).cpu()
+        want = np.array([tables.dqt(r, sfb)[f, q] for r, f, q in zip(rs_a.ravel(), sf_a.ravel(), q_a.ravel())])
+        check(np.array_equal(got[:, 0, :].reshape(-1).numpy(), want), f"vbr dequant sfb={sfb} != tables.dqt")
+        worst = max(worst, max_abs(got, decode_vbr_plain(*cpu, **kw)))
+    log("[phase 2] VBR kernel dequant == tables.dqt for every (sfb, rs, sf, code)")
+    return worst
+
+
 def stress_signal(rng, frames, c):
     """Clipping stress: full-scale noise, then full-scale square waves."""
     half = frames // 2
@@ -290,27 +372,87 @@ def search_sweep(rng):
     return worst
 
 
+def search_sweep_vbr(rng):
+    """The search's VBR forms: random per-(window, channel) sizes 1..8, and
+    the ranks-only form at a constant size, each equal to its plain version
+    (ranks-only has no codes), and ranks-only equal to the full form in sf,
+    ranks and state; with and without a masked ragged tail."""
+    import torch
+
+    from sea_codec_torch.ops.window_search import window_search, window_search_plain
+
+    grid = [(sfb, (1, 2, 3, 8)[sfb % 4], 256) for sfb in range(1, 9)] + [(8, 255, 32)]
+    sff = 16
+    worst = 0
+    for i, (sfb, c, fpc) in enumerate(grid):
+        wpc = fpc // sff
+        x = stress_signal(rng, 2 * fpc, c)
+        nw = 2 * wpc
+        n_valid = None
+        if i % 2:  # the last window ragged
+            n_valid = torch.full((nw,), sff, dtype=torch.int32)
+            n_valid[-1] = sff - 5
+        hist = torch.from_numpy(rng.integers(-32768, 32768, (c, 4)).astype(np.int32))
+        wts = torch.from_numpy(rng.integers(-(1 << 22), 1 << 22, (c, 4)).astype(np.int32))
+        prev = torch.from_numpy(rng.integers(0, 1 << sfb, c).astype(np.int32))
+        rs = torch.from_numpy(rng.integers(1, 9, (nw, c)).astype(np.uint8))
+        cpu = (torch.from_numpy(x), n_valid, hist, wts, prev)
+        gpu = tuple(None if t is None else t.cuda() for t in cpu)
+        what = f"vbr search sfb={sfb} c={c} ragged={n_valid is not None}"
+        for form in (dict(rs=rs), dict(rs=1 + i % 8, ranks_only=True)):
+            kw = dict(form, sfb=sfb, sff=sff, wpc=wpc)
+            got = window_search(*gpu, **dict(kw, rs=kw["rs"].cuda() if torch.is_tensor(kw["rs"]) else kw["rs"]))
+            want = window_search_plain(*cpu, **kw)
+            check((got[1] is None) == (want[1] is None), f"{what}: codes presence")
+            keep = [j for j in range(8) if got[j] is not None]
+            worst = max(worst, worst_of([got[j] for j in keep], [want[j] for j in keep], what))
+            if form.get("ranks_only"):
+                full = window_search(*gpu, **dict(kw, ranks_only=False))
+                worst = max(worst, worst_of([got[j] for j in keep], [full[j] for j in keep],
+                                            f"{what}: ranks-only != full form"))
+    torch.cuda.synchronize()
+    log(f"[phase 2] window search, VBR forms == plain on {len(grid)} configs "
+        "(per-window sizes 1..8; ranks-only == plain and == the full form; sfb 1..8, C up to 255)")
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # phases 3-5
 # ---------------------------------------------------------------------------
 
 
-def fixtures(here):
+FIXTURES = ("cbr_stereo_b3", "cbr_8ch_b8", "cbr_mono_b1_ragged", "vbr_stereo_b25", "vbr_mono_b5_ragged")
+
+
+def fixtures(here, rng):
     from sea_codec_torch import EncoderSettings, sea_decode, sea_encode
 
-    for name in ("cbr_stereo_b3", "cbr_8ch_b8", "cbr_mono_b1_ragged"):
+    for name in FIXTURES:
         fx = np.load(os.path.join(here, "tests", "fixtures", name + ".npz"))
         st = EncoderSettings(
             scale_factor_bits=int(fx["sfb"]),
             scale_factor_frames=int(fx["sff"]),
             residual_bits=float(fx["rb"]),
             frames_per_chunk=int(fx["fpc"]),
+            vbr=bool(fx["vbr"]),
         )
         enc = sea_encode(fx["input"], int(fx["sample_rate"]), int(fx["channels"]), st)
         check(enc == fx["encoded"].tobytes(), f"fixture {name}: encoded bytes differ")
         dec = sea_decode(fx["encoded"].tobytes())
         check(np.array_equal(dec.samples, fx["decoded"]), f"fixture {name}: PCM differs")
-    log("[phase 3] cbr fixtures: encode byte-equal, decode PCM-equal on the card")
+    # a tail-only 255-channel file at the default chunk length: its tail
+    # chunk decodes at its own length (padded to a full chunk it would
+    # exceed the kernels' shared memory)
+    pcm = rng.integers(-20000, 20000, 300 * 255).astype(np.int16)
+    for st in (EncoderSettings(), vbr_settings()):
+        vbr = st.vbr
+        enc = sea_encode(pcm, 44100, 255, st)
+        check(enc == sea_encode(pcm, 44100, 255, st, device="cpu"),
+              f"tail-only 255 ch vbr={vbr}: card encode != plain")
+        check(np.array_equal(sea_decode(enc).samples, sea_decode(enc, device="cpu").samples),
+              f"tail-only 255 ch vbr={vbr}: card decode != plain")
+    log(f"[phase 3] fixtures {', '.join(FIXTURES)}: encode byte-equal, decode PCM-equal on the card; "
+        "tail-only 255-channel CBR and VBR files equal to plain")
 
 
 def music_signal(frames, seed):
@@ -333,18 +475,60 @@ def music_signal(frames, seed):
     return np.clip(pcm, -32768, 32767).astype(np.int16).reshape(-1)
 
 
-def main_path(result):
+def launch_counts():
+    from sea_codec_torch.ops import fused_decode, fused_decode_vbr, window_search
+
+    return {
+        "fused_decode_cbr": fused_decode.launches,
+        "fused_decode_vbr": fused_decode_vbr.launches,
+        "window_search": window_search.launches,
+        "window_search_ranks_only": window_search.ranks_only_launches,
+    }
+
+
+def reset_launch_counts():
+    from sea_codec_torch.ops import fused_decode, fused_decode_vbr, window_search
+
+    fused_decode.launches = fused_decode_vbr.launches = 0
+    window_search.launches = window_search.ranks_only_launches = 0
+
+
+MAIN_FRAMES, MAIN_CHANNELS, MAIN_RATE = 7_938_000, 2, 44100
+
+
+def vbr_settings():
+    """The VBR main path's settings: the defaults at a 2.5-bit target."""
+    from sea_codec_torch import EncoderSettings
+
+    return EncoderSettings(vbr=True, residual_bits=2.5)
+
+
+def vbr_chunk_size(st, c):
+    """A full VBR chunk's bytes: every full chunk carries the same size
+    counts from interpolate_distribution, so the same residual bits."""
+    from sea_codec_torch.models.vbr import interpolate_distribution, normalized_vbr_bitrate, vbr_base
+
+    f, sff, sfb = st.frames_per_chunk, st.scale_factor_frames, st.scale_factor_bits
+    target = normalized_vbr_bitrate(st.residual_bits, f, sfb, sff)
+    base = vbr_base(target)
+    items = f // sff * c
+    m1, t0, p1, p2 = interpolate_distribution(items, target)
+    sizes = np.clip([base - 1, base, base + 1, base + 2], 1, 8)
+    bits = sff * int(np.dot([m1, t0, p1, p2], sizes))
+    return 4 + 16 * c + (items * sfb + 7) // 8 + (items * 2 + 7) // 8 + (bits + 7) // 8
+
+
+def main_path(result, pcm, label, st, chunk_size, must_launch):
+    """``sea_encode`` then ``sea_decode`` of ``pcm`` on the card with the
+    launch counts set to 0 just before and read just after; checked
+    against the plain decode on the CPU."""
     import torch
 
-    from sea_codec_torch import EncoderSettings, sea_decode, sea_encode
+    from sea_codec_torch import sea_decode, sea_encode
     from sea_codec_torch.batch import split_chunks
-    from sea_codec_torch.ops import fused_decode, window_search
 
-    frames, c, rate = 7_938_000, 2, 44100
-    pcm = music_signal(frames, seed=2024)
-    st = EncoderSettings()
-    fused_decode.launches = 0
-    window_search.launches = 0
+    frames, c, rate = MAIN_FRAMES, MAIN_CHANNELS, MAIN_RATE
+    reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     enc = sea_encode(pcm, rate, c, st)
@@ -353,12 +537,11 @@ def main_path(result):
     dec = sea_decode(enc)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    result["launches"] = {
-        "fused_decode_cbr": fused_decode.launches,
-        "window_search": window_search.launches,
-    }
-    check(fused_decode.launches > 0, "main path never launched the fused decode kernel")
-    check(window_search.launches > 0, "main path never launched the window search kernel")
+    counts = launch_counts()
+    counts["window_search_full"] = counts["window_search"] - counts["window_search_ranks_only"]
+    result["launches"][label] = counts
+    for name in must_launch:
+        check(counts[name] > 0, f"{label} main path never launched {name}")
 
     header, rect, tail = split_chunks(enc)
     check(
@@ -366,32 +549,31 @@ def main_path(result):
         == (c, rate, frames, 5120),
         f"header fields {header}",
     )
-    check(rect.shape[0] == 1550 and len(tail) > 0, "expected 1550 full chunks and a tail")
-    check(header.chunk_size == 4 + 16 * c + (256 * c * 4 + 7) // 8 + 5120 * c * 3 // 8,
-          f"chunk_size {header.chunk_size}")
+    check(rect.shape[0] == frames // 5120 and len(tail) > 0, f"expected {frames // 5120} full chunks and a tail")
+    check(header.chunk_size == chunk_size, f"chunk_size {header.chunk_size} != {chunk_size}")
     check(dec.samples.shape == (frames * c,), f"decoded length {dec.samples.shape}")
     check(dec.sample_rate == rate and dec.channels == c, "decoded header")
     t3 = time.perf_counter()
     plain = sea_decode(enc, device="cpu")
     t4 = time.perf_counter()
-    check(np.array_equal(dec.samples, plain.samples), "card decode != plain CPU decode")
+    check(np.array_equal(dec.samples, plain.samples), f"{label}: card decode != plain CPU decode")
     err = (dec.samples.astype(np.float64) - pcm) / 32767.0
     rms = float(np.sqrt(np.mean(err * err)))
     psnr = -20.0 * np.log10(2.0 / rms)
     msamples = frames * c / 1e6
     log(
-        f"[phase 4] main path {frames} frames x {c} ch ({msamples} Msamples), "
-        f"{len(enc)} bytes: encode {t1 - t0:.4f} s ({msamples / (t1 - t0):.3f} Msamples/s), "
+        f"[phase 4] {label} main path {frames} frames x {c} ch ({msamples} Msamples), "
+        f"{len(enc)} bytes ({8 * len(enc) / (frames * c):.4f} bits/sample): "
+        f"encode {t1 - t0:.4f} s ({msamples / (t1 - t0):.3f} Msamples/s), "
         f"decode {t2 - t1:.4f} s ({msamples / (t2 - t1):.3f} Msamples/s), "
         f"psnr {psnr:.3f} dB (-20*log10(2/rms), lower is better), "
-        f"plain CPU decode {t4 - t3:.3f} s, equal; launches {result['launches']}; "
-        f"card {result['card']}"
+        f"plain CPU decode {t4 - t3:.3f} s, equal; launches {counts}; card {result['card']}"
     )
-    result["main"] = {
+    result["main"][label] = {
         "encode_s": t1 - t0, "decode_s": t2 - t1, "psnr_db": psnr,
         "bytes": len(enc), "plain_cpu_decode_s": t4 - t3,
     }
-    return pcm, enc
+    return enc
 
 
 def decode_at_main_shape(enc, result):
@@ -417,7 +599,7 @@ def decode_at_main_shape(enc, result):
         "name": "fused_decode_cbr", "route": "cuda",
         "source": "sea_codec_torch/csrc/fused_decode_cbr.cu",
         "replaces": "sea_codec_tpu/ops/pallas_fused_decode.py:130",
-        "launches": result["launches"]["fused_decode_cbr"],
+        "launches": result["launches"]["cbr"]["fused_decode_cbr"],
         "ms": ms, "plain_ms": plain_ms, "shape": [n, f, c],
         "bytes": b.res_bytes.nbytes + b.sf.nbytes + 2 * b.hist.size * 4 + n * f * c * 2,
         "ops": tuple(n * f * c * k for k in DECODE_OPS_PER_SAMPLE),
@@ -485,7 +667,8 @@ def search_at_main_shape(pcm, enc, result):
         "name": "window_search", "route": "cuda",
         "source": "sea_codec_torch/csrc/window_search.cu",
         "replaces": "sea_codec_tpu/ops/pallas_encode.py:491",
-        "launches": result["launches"]["window_search"],
+        "launches": sum(result["launches"][p]["window_search"] for p in ("cbr", "vbr")),
+        "launches_by_path": {p: result["launches"][p]["window_search"] for p in ("cbr", "vbr")},
         "ms": ms, "plain_ms": plain_ms, "ms_plain_shape": prefix_ms,
         "plain_shape": [2 * f, c], "shape": [nc * f, c],
         "bytes": x.numel() * 2 + x.numel() + nw * c * (1 + 8) + 2 * nc * c * 16,
@@ -496,12 +679,149 @@ def search_at_main_shape(pcm, enc, result):
     }
 
 
+def vbr_decode_at_main_shape(enc, result):
+    """The VBR decode kernel on the VBR main path's full chunks: equal to
+    its plain version, and its time beside the plain version's."""
+    import torch
+
+    from sea_codec_torch.batch import parse_full_chunks, split_chunks
+    from sea_codec_torch.ops.fused_decode_vbr import decode_vbr_fused, decode_vbr_plain
+
+    header, rect, _tail = split_chunks(enc)
+    b = parse_full_chunks(rect, header)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in (b.res_bytes, b.sf, b.rs, b.hist, b.wts)]
+    f = header.frames_per_chunk
+    kw = dict(sfb=b.scale_factor_bits, sff=b.scale_factor_frames, frames=f)
+    n, w, c = b.sf.shape
+    ms, got = cuda_ms(lambda: decode_vbr_fused(*args, **kw), reps=20)
+    plain_ms, want = cuda_ms(lambda: decode_vbr_plain(*args, **kw), reps=1)
+    err = worst_of([got], [want], "VBR decode at the main-path shape")
+    log(f"[phase 5] VBR decode kernel == plain at {[n, f, c]}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms")
+    return err, {
+        "name": "fused_decode_vbr", "route": "cuda",
+        "source": "sea_codec_torch/csrc/fused_decode_vbr.cu",
+        "replaces": "sea_codec_tpu/ops/pallas_fused_decode.py:419",
+        "launches": result["launches"]["vbr"]["fused_decode_vbr"],
+        "ms": ms, "plain_ms": plain_ms, "shape": [n, f, c],
+        "bytes": b.res_bytes.nbytes + b.sf.nbytes + b.rs.nbytes + 2 * b.hist.size * 4 + n * f * c * 2,
+        # per sample, plus the window's C sizes read for wsum and prefix
+        "ops": (n * f * c * VBR_DECODE_OPS_PER_SAMPLE[0] + n * w * c * c * VBR_DECODE_OPS_PER_SIZE,
+                n * f * c * VBR_DECODE_OPS_PER_SAMPLE[1]),
+        "chain_cycles": f * chain_cycles(DECODE_FRAME_CHAIN),
+    }
+
+
+def vbr_search_at_main_shape(pcm, enc, result, clock_mhz):
+    """The search in its VBR forms at the VBR main path's shapes: the
+    two-pass file encode on the card reproduces the file's scale factors,
+    sizes, codes and chunk states, and packed on the host its bytes; on the
+    first two chunks it equals the plain version on the CPU, and so does
+    the tail chunk's encode from the carried state. Prints each pass's
+    kernel time on one chunk and the host pack's time."""
+    import torch
+
+    from sea_codec_torch.batch import parse_full_chunks, serialize_full_chunks, split_chunks
+    from sea_codec_torch.container import SeaChunk
+    from sea_codec_torch.models.common import EncoderBaseState
+    from sea_codec_torch.models.vbr import (
+        VbrEncoderModel, chunk_residual_size, interpolate_distribution, normalized_vbr_bitrate, vbr_base,
+    )
+    from sea_codec_torch.ops import lms
+    from sea_codec_torch.ops.device_decode import unpack_var
+    from sea_codec_torch.ops.encode_file import encode_file_vbr
+    from sea_codec_torch.ops.window_search import window_search
+
+    header, rect, tail = split_chunks(enc)
+    b = parse_full_chunks(rect, header)
+    nc, f, c = rect.shape[0], header.frames_per_chunk, header.channels
+    st = vbr_settings()
+    sfb, sff, wpc = st.scale_factor_bits, st.scale_factor_frames, f // st.scale_factor_frames
+    target = normalized_vbr_bitrate(st.residual_bits, f, sfb, sff)
+    base = vbr_base(target)
+    m1, _t, p1, p2 = interpolate_distribution(f * c // sff, target)
+    fkw = dict(scale_factor_frames=sff, scale_factor_bits=sfb, base=base, dist=(m1, p1, p2))
+    x = torch.from_numpy(pcm[: nc * f * c].reshape(nc, f, c)).cuda()
+    init = (lms.initial_history(c, "cuda"), lms.initial_weights(c, "cuda"),
+            torch.zeros(c, dtype=torch.int32, device="cuda"))
+
+    file_ms, out = cuda_ms(lambda: encode_file_vbr(x, *init, **fkw), reps=1)
+    sf, codes, sizes, ehist, ewts = (t.cpu().numpy() for t in out[:5])
+    i16 = lambda a: a.astype(np.int16).astype(np.int32)  # the chunk header's width
+    check(np.array_equal(sf, b.sf) and np.array_equal(sizes, b.rs), "VBR search: sf/sizes != main-path file")
+    check(np.array_equal(i16(ehist), b.hist) and np.array_equal(i16(ewts), b.wts),
+          "VBR search: chunk-entry LMS states != main-path file")
+    want_codes = unpack_var(torch.from_numpy(b.res_bytes), torch.from_numpy(b.rs), sff, f).numpy()
+    check(np.array_equal(codes, want_codes), "VBR search: codes != main-path file")
+    t0 = time.perf_counter()
+    rows = serialize_full_chunks(sf, codes, sizes, ehist, ewts, sfb, sff,
+                                 chunk_residual_size(st.residual_bits, target))
+    pack_s = time.perf_counter() - t0
+    check(np.array_equal(rows, rect), "VBR host pack != main-path file")
+    log(f"[phase 5] VBR host pack (serialize_full_chunks, numpy) of {nc} chunks x {f * c} codes: "
+        f"{pack_s * 1e3:.1f} ms, == main-path file")
+
+    skw = dict(sfb=sfb, sff=sff, wpc=wpc)
+    x0 = x[0]
+    p1_ms, r1 = cuda_ms(lambda: window_search(x0, None, *init, rs=base + 1, ranks_only=True, **skw), reps=10)
+    full1_ms, _ = cuda_ms(lambda: window_search(x0, None, *init, rs=base + 1, **skw), reps=10)
+    rs0 = torch.from_numpy(sizes[0]).cuda()
+    p2_ms, _ = cuda_ms(lambda: window_search(x0, None, init[0], init[1], r1[7], rs=rs0, **skw), reps=10)
+
+    cpu_init = tuple(t.cpu() for t in init)
+    t0 = time.perf_counter()
+    want = encode_file_vbr(x[:2].cpu(), *cpu_init, **fkw)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # the chunk loop must never wait for the card
+    try:
+        got = encode_file_vbr(x[:2], *init, **fkw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    worst = worst_of(got, want, "VBR search on the first two main-path chunks")
+
+    tail_frames = header.total_frames - nc * f
+    tail_pcm = pcm[nc * f * c :]
+    state = lambda dev: EncoderBaseState(*(t.to(dev) for t in out[5:]))
+    enc_t = VbrEncoderModel(c, sfb, sff, st.residual_bits, f, state("cuda")).encode(tail_pcm)
+    want_t = VbrEncoderModel(c, sfb, sff, st.residual_bits, f, state("cpu")).encode(tail_pcm)
+    chunk = SeaChunk.from_bytes(tail, header, tail_frames)
+    for got_a, want_a, file_a in zip(
+        (enc_t.scale_factors, enc_t.residuals, enc_t.residual_bits),
+        (want_t.scale_factors, want_t.residuals, want_t.residual_bits),
+        (chunk.scale_factors, chunk.residuals, chunk.vbr_residual_sizes),
+    ):
+        check(np.array_equal(got_a, want_a) and np.array_equal(got_a, file_a),
+              "VBR tail chunk: card != plain or != main-path file")
+    log(f"[phase 5] VBR search == main-path file over {nc} chunks ({2 * nc} launches, {file_ms:.3f} ms); "
+        f"per chunk {[f, c]}: pass 1 ranks-only {p1_ms:.4f} ms (full form {full1_ms:.4f} ms), "
+        f"pass 2 per-window sizes {p2_ms:.4f} ms; == plain on two chunks (plain {plain_ms:.1f} ms; "
+        "the chunk loop ran without a host sync) "
+        f"and on the {tail_frames}-frame tail")
+    s = 1 << sfb
+    k = {
+        # both passes read the samples; pass 2 writes the codes
+        "bytes": 2 * x.numel() * 2 + x.numel() + 2 * nc * wpc * c * (1 + 8) + nc * wpc * c + 2 * nc * c * 16,
+        "ops": tuple(2 * x.numel() * s * n_ops for n_ops in SEARCH_OPS_PER_STEP),
+        "chain_cycles": 2 * (nc * f * chain_cycles(SEARCH_STEP_CHAIN) + nc * wpc * chain_cycles(SEARCH_WINDOW_CHAIN)),
+    }
+    bounds(k, clock_mhz)
+    log(f"[phase 5] window_search, VBR file: {file_ms:.3f} ms; bound {k['bound_ms']:.4f} ms "
+        f"(by {k['bound_by']}); chain {k['chain_ms']:.4f} ms at {clock_mhz} MHz")
+    return worst, {
+        "file_ms": file_ms, "launches": 2 * nc, "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+        "chain_ms": k["chain_ms"], "pass1_ranks_only_ms_per_chunk": p1_ms,
+        "pass1_full_form_ms_per_chunk": full1_ms, "pass2_ms_per_chunk": p2_ms,
+        "plain_ms_two_chunks": plain_ms, "host_pack_ms": pack_s * 1e3,
+    }
+
+
 def run(here):
     import torch
 
+    from sea_codec_torch import EncoderSettings
     from sea_codec_torch.ops import cuda_build
 
-    result = {}
+    result = {"launches": {}, "main": {}}
     t0 = time.perf_counter()
     cuda_build.build_all()
     log(f"[phase 1] built {len(cuda_build.KERNEL_SOURCES)} kernels in {time.perf_counter() - t0:.2f} s")
@@ -511,18 +831,29 @@ def run(here):
     rng = np.random.default_rng(7)
     errs = {
         "fused_decode_cbr": max(decode_sweep(rng), dequant_exhaustive()),
-        "window_search": search_sweep(rng),
+        "fused_decode_vbr": max(vbr_decode_sweep(rng), vbr_dequant_exhaustive()),
+        "window_search": max(search_sweep(rng), search_sweep_vbr(rng)),
     }
-    fixtures(here)
-    pcm, enc = main_path(result)
+    fixtures(here, rng)
+    pcm = music_signal(MAIN_FRAMES, seed=2024)
+    c = MAIN_CHANNELS
+    enc = main_path(result, pcm, "cbr", EncoderSettings(),
+                    4 + 16 * c + (256 * c * 4 + 7) // 8 + 5120 * c * 3 // 8,
+                    ("fused_decode_cbr", "window_search"))
+    enc_vbr = main_path(result, pcm, "vbr", vbr_settings(), vbr_chunk_size(vbr_settings(), c),
+                        ("fused_decode_vbr", "window_search_full", "window_search_ranks_only"))
     clock_mhz = float(smi("clocks.max.sm", ",nounits"))
     kernels = []
-    for err, k in (decode_at_main_shape(enc, result), search_at_main_shape(pcm, enc, result)):
+    phase5 = (decode_at_main_shape(enc, result), vbr_decode_at_main_shape(enc_vbr, result),
+              search_at_main_shape(pcm, enc, result))
+    for err, k in phase5:
         k["max_abs_err"] = max(errs[k["name"]], err)
         bounds(k, clock_mhz)
         kernels.append(k)
         log(f"[phase 5] {k['name']}: {k['ms']:.4f} ms; bound {k['bound_ms']:.4f} ms "
             f"(by {k['bound_by']}); chain {k['chain_ms']:.4f} ms at {clock_mhz} MHz")
+    err, kernels[-1]["vbr"] = vbr_search_at_main_shape(pcm, enc_vbr, result, clock_mhz)
+    kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"], err)
     log("[phase 5] kernels: " + ", ".join(
         f"{k['name']} launches={k['launches']} equal to plain: true" for k in kernels))
     return kernels, result

@@ -6,10 +6,11 @@ same ``.sea`` bytes and the same decoded PCM, bit for bit. This package
 imports neither JAX nor anything of ``sea_codec_tpu``.
 
 - ``ops/``    -- tables, bit packing, the LMS predictor, the decode and
-                 encode pipelines, and the two CUDA kernels with their plain
-                 PyTorch versions (``fused_decode``, ``window_search``;
-                 sources in ``csrc/``, built by ``ops/cuda_build.py``).
-- ``models/`` -- the CBR tail-chunk encoder and the chunk decoder.
+                 encode pipelines, and the three CUDA kernels with their
+                 plain PyTorch versions (``fused_decode``,
+                 ``fused_decode_vbr``, ``window_search``; sources in
+                 ``csrc/``, built by ``ops/cuda_build.py``).
+- ``models/`` -- the CBR and VBR tail-chunk encoders and the chunk decoder.
 - ``container.py`` -- the ``.sea`` file/chunk framing (host-side bytes).
 - ``batch.py``/``api.py`` -- whole-file encode/decode, one-shot API.
 - ``convert.py`` -- carries encoder/LMS state and settings over from the

@@ -1,9 +1,9 @@
 """One-shot API (reference ``src/lib.rs:13-63``).
 
 Both calls run on the CUDA card unless the caller passes ``device``;
-``device="cpu"`` runs the plain PyTorch versions of the kernels. Only the
-batch engine of the CBR round trip is ported: ``engine="session"`` and VBR
-raise ``NotImplementedError`` (see ROADMAP.md).
+``device="cpu"`` runs the plain PyTorch versions of the kernels. The batch
+engine is ported, CBR and VBR; ``engine="session"`` raises
+``NotImplementedError`` (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -50,4 +50,4 @@ def sea_decode(encoded: bytes, engine: str = "auto", device=None) -> SeaDecodeIn
     from .batch import decode_sea
 
     _check_engine(engine)
-    return decode_sea(encoded, device)
+    return decode_sea(encoded, device=device)

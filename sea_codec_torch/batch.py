@@ -1,18 +1,19 @@
-"""Whole-file CBR encode and decode -- the performance path.
+"""Whole-file encode and decode, CBR and VBR -- the performance path.
 
 A ``.sea`` file is a fixed-size-chunk container, so every full chunk of a
 file has an *identical* byte layout. Decode: the host slices the container
-(LMS i16 views, small scale-factor unpacks); the packed residual bytes go to
-the device untouched, and one fused kernel launch unpacks, dequantizes and
-runs the LMS recurrence for all chunks x channels
-(``ops.fused_decode``). The ragged final chunk decodes through the same
-kernel, padded to a full chunk (``models.decoder``). Encode: one search
-kernel launch walks every window of every full chunk (``ops.encode_file``),
-the container rows are packed on the device (``ops.serialize_device``), and
-the ragged tail chunk is encoded from the carried state (``models.cbr``).
+(LMS i16 views, small scale-factor and size unpacks); the packed residual
+bytes go to the device untouched, and one fused kernel launch per batch of
+chunks unpacks, dequantizes and runs the LMS recurrence for all chunks x
+channels (``ops.fused_decode`` for CBR, ``ops.fused_decode_vbr`` for VBR).
+The ragged final chunk decodes through the same kernel (``models.decoder``).
+Encode: the scale-factor search kernel walks every window of every full
+chunk (``ops.encode_file``: one launch for CBR, two per chunk for VBR); CBR
+rows are packed on the device (``ops.serialize_device``), VBR rows on the
+host (``serialize_full_chunks``); the ragged tail chunk is encoded from the
+carried state (``models.cbr``, ``models.vbr``).
 
-Output is byte-identical to ``sea_codec_tpu.batch`` (CBR). VBR raises
-``NotImplementedError`` (see ROADMAP.md).
+Output is byte-identical to ``sea_codec_tpu.batch``.
 """
 
 from __future__ import annotations
@@ -33,10 +34,11 @@ from .container import (
 from .models.decoder import DecoderModel
 from .ops import bitpack
 from .ops.fused_decode import decode_cbr_fused
+from .ops.fused_decode_vbr import decode_vbr_fused
 from .utils.device import resolve_device
 from .utils.errors import SeaInvalidFrame
 
-_VBR_TODO = "VBR is not ported yet (see ROADMAP.md, Queue A)"
+_PACK_BLOCK_ROWS = 64  # chunks per host VBR pack; the bytes do not depend on it
 
 
 class ParsedBatch:
@@ -158,9 +160,14 @@ def split_chunks(encoded: bytes):
     return header, rect, tail
 
 
-def decode_sea(encoded: bytes, device=None) -> SeaDecodeInfo:
-    """Decode a whole CBR .sea stream (bit-identical to the JAX package)."""
+def decode_sea(encoded: bytes, device_batch: int = 1024, device=None) -> SeaDecodeInfo:
+    """Decode a whole .sea stream, CBR or VBR (bit-identical to the JAX
+    package). Full chunks decode ``device_batch`` chunks per kernel launch,
+    each batch's PCM copied back before the next launch, so one batch's PCM
+    is on the card at a time."""
     dev = resolve_device(device)
+    if device_batch < 1:
+        raise ValueError(f"device_batch must be >= 1, got {device_batch}")
     header, rect, tail = split_chunks(encoded)
     c = header.channels
     fpc = header.frames_per_chunk
@@ -169,20 +176,21 @@ def decode_sea(encoded: bytes, device=None) -> SeaDecodeInfo:
     parts: list[np.ndarray] = []
     if rect is not None:
         batch = parse_full_chunks(rect, header)
-        if batch.chunk_type == CHUNK_TYPE_VBR:
-            raise NotImplementedError(_VBR_TODO)
         n = rect.shape[0]
+        vbr = batch.chunk_type == CHUNK_TYPE_VBR
         up = lambda a: torch.from_numpy(np.require(a, requirements=("C", "W"))).to(dev)
-        pcm = decode_cbr_fused(
-            up(batch.res_bytes),
-            up(batch.sf),
-            up(batch.hist),
-            up(batch.wts),
-            sfb=batch.scale_factor_bits,
-            rs=batch.residual_size,
-            sff=batch.scale_factor_frames,
-            frames=fpc,
-        ).cpu().numpy()  # [N, fpc, C]
+        res, sf, hist, wts = (up(a) for a in (batch.res_bytes, batch.sf, batch.hist, batch.wts))
+        rs = up(batch.rs) if vbr else None
+        kw = dict(sfb=batch.scale_factor_bits, sff=batch.scale_factor_frames, frames=fpc)
+        pcm_parts = []
+        for start in range(0, n, device_batch):
+            sl = slice(start, start + device_batch)
+            if vbr:
+                out = decode_vbr_fused(res[sl], sf[sl], rs[sl], hist[sl], wts[sl], **kw)
+            else:
+                out = decode_cbr_fused(res[sl], sf[sl], hist[sl], wts[sl], rs=batch.residual_size, **kw)
+            pcm_parts.append(out.cpu().numpy())
+        pcm = np.concatenate(pcm_parts)  # [N, fpc, C]
         last = fpc
         if total_frames > 0:
             last = min(fpc, total_frames - (n - 1) * fpc)
@@ -197,7 +205,7 @@ def decode_sea(encoded: bytes, device=None) -> SeaDecodeInfo:
         remaining = total_frames - n_full * fpc if total_frames > 0 else None
         chunk = SeaChunk.from_bytes(tail, header, remaining)
         model = DecoderModel(c, chunk.scale_factor_bits, dev)
-        parts.append(model.decode_chunk(chunk, frames_padded=fpc))
+        parts.append(model.decode_chunk(chunk))
 
     samples = np.concatenate(parts) if parts else np.zeros(0, dtype=np.int16)
     if total_frames > 0 and samples.shape[0] < total_frames * c:
@@ -220,6 +228,56 @@ def _check_chunk_size(n: int) -> None:
         )
 
 
+def serialize_full_chunks(
+    sf: np.ndarray,  # uint8[nc, w, C]
+    codes: np.ndarray,  # uint8[nc, fpc, C]
+    sizes: np.ndarray,  # uint8[nc, w, C] absolute VBR sizes
+    ehist: np.ndarray,  # int32[nc, C, 4]
+    ewts: np.ndarray,  # int32[nc, C, 4]
+    scale_factor_bits: int,
+    scale_factor_frames: int,
+    residual_size: int,
+) -> np.ndarray:
+    """Host serialization of full VBR chunks -> uint8[nc, chunk_size].
+
+    All full chunks share section lengths (the distribution counts are
+    static per full chunk, so the residual bit total is constant), making
+    the body one rectangular pack, done ``_PACK_BLOCK_ROWS`` rows at a time
+    to bound the packer's temporaries (~40 bytes per code). Variable-width
+    residuals cannot use the device serializer's static layouts."""
+    nc, w, c = sf.shape
+    fpc = codes.shape[1]
+    sff = scale_factor_frames
+    head = np.tile(
+        np.array(
+            [CHUNK_TYPE_VBR, ((scale_factor_bits << 4) | residual_size) & 0xFF, sff, 0x5A],
+            dtype=np.uint8,
+        ),
+        (nc, 1),
+    )
+    lms = np.concatenate([ehist, ewts], axis=2).astype(np.int16)  # [nc, C, 8]
+    lms_bytes = np.ascontiguousarray(lms.astype("<i2")).reshape(nc, -1).view(np.uint8)
+    rel = (sizes.astype(np.int32) - residual_size + 1).astype(np.uint8)
+    parts = [
+        head,
+        lms_bytes,
+        bitpack.pack_bits_rows(sf.reshape(nc, w * c), scale_factor_bits),
+        bitpack.pack_bits_rows(rel.reshape(nc, w * c), 2),
+    ]
+    res = []
+    for b0 in range(0, nc, _PACK_BLOCK_ROWS):
+        sz = sizes[b0 : b0 + _PACK_BLOCK_ROWS]
+        widths = np.repeat(sz.astype(np.int64), sff, axis=1)[:, :fpc]
+        res.append(
+            bitpack.pack_bits_rows(
+                codes[b0 : b0 + _PACK_BLOCK_ROWS].reshape(sz.shape[0], fpc * c),
+                widths.reshape(sz.shape[0], fpc * c),
+            )
+        )
+    parts.append(np.concatenate(res))
+    return np.hstack(parts)
+
+
 def encode_sea(
     samples: np.ndarray,
     sample_rate: int,
@@ -227,21 +285,28 @@ def encode_sea(
     settings=None,
     device=None,
 ) -> bytes:
-    """Whole-file CBR encode: one search launch for all full chunks, rows
-    packed on the device, host-side container assembly. Byte-identical to
-    the JAX package's ``batch.encode_sea``."""
+    """Whole-file encode, byte-identical to the JAX package's
+    ``batch.encode_sea``. CBR: one search launch for all full chunks, rows
+    packed on the device. VBR: two search launches per full chunk
+    (``ops.encode_file``), rows packed on the host. The ragged tail chunk is
+    encoded from the carried state."""
     from .encoder import EncoderSettings, coerce_samples, validate_encode_params
     from .models.cbr import CbrEncoderModel
     from .models.common import EncoderBaseState
-    from .ops.encode_file import encode_file_cbr
+    from .models.vbr import (
+        VbrEncoderModel,
+        chunk_residual_size,
+        interpolate_distribution,
+        normalized_vbr_bitrate,
+        vbr_base,
+    )
+    from .ops.encode_file import encode_file_cbr, encode_file_vbr
     from .ops.serialize_device import serialize_chunks_cbr_device
 
     if settings is None:
         settings = EncoderSettings()
     samples = coerce_samples(samples)
     validate_encode_params(channels, settings, samples.shape[0] // max(channels, 1))
-    if settings.vbr:
-        raise NotImplementedError(_VBR_TODO)
     dev = resolve_device(device)
     c = channels
     fpc = settings.frames_per_chunk
@@ -250,6 +315,9 @@ def encode_sea(
     frames = samples.shape[0] // c
     nc_full = frames // fpc
     residual_size = int(np.floor(settings.residual_bits))
+    if settings.vbr:
+        target = normalized_vbr_bitrate(settings.residual_bits, fpc, sfb, sff)
+        residual_size = chunk_residual_size(settings.residual_bits, target)
 
     header = SeaFileHeader(
         version=1,
@@ -266,31 +334,50 @@ def encode_sea(
         # int16 on the wire; the kernel reads the interleaved PCM as is
         pcm = np.require(samples[: nc_full * fpc * c], requirements=("C", "W"))
         x = torch.from_numpy(pcm).to(dev).reshape(nc_full, fpc, c)
-        sf, codes, ehist, ewts, hist, wts, prev = encode_file_cbr(
-            x, state.hist, state.wts, state.prev_sf,
-            scale_factor_frames=sff,
-            scale_factor_bits=sfb,
-            residual_size=residual_size,
-        )
-        rows = serialize_chunks_cbr_device(
-            sf, codes, ehist, ewts,
-            scale_factor_bits=sfb,
-            scale_factor_frames=sff,
-            residual_size=residual_size,
-        ).cpu().numpy()
+        if settings.vbr:
+            m1, _t, p1, p2 = interpolate_distribution((fpc * c) // sff, target)
+            sf, codes, sizes, ehist, ewts, hist, wts, prev = encode_file_vbr(
+                x, state.hist, state.wts, state.prev_sf,
+                scale_factor_frames=sff,
+                scale_factor_bits=sfb,
+                base=vbr_base(target),
+                dist=(m1, p1, p2),
+            )
+            rows = serialize_full_chunks(
+                *(t.cpu().numpy() for t in (sf, codes, sizes, ehist, ewts)),
+                scale_factor_bits=sfb,
+                scale_factor_frames=sff,
+                residual_size=residual_size,
+            )
+        else:
+            sf, codes, ehist, ewts, hist, wts, prev = encode_file_cbr(
+                x, state.hist, state.wts, state.prev_sf,
+                scale_factor_frames=sff,
+                scale_factor_bits=sfb,
+                residual_size=residual_size,
+            )
+            rows = serialize_chunks_cbr_device(
+                sf, codes, ehist, ewts,
+                scale_factor_bits=sfb,
+                scale_factor_frames=sff,
+                residual_size=residual_size,
+            ).cpu().numpy()
         chunks.extend(bytes(row) for row in rows)
         state = EncoderBaseState(hist, wts, prev)
 
     # ragged tail chunk from the carried state (the session's final chunk)
     tail_frames = frames - nc_full * fpc
     if tail_frames:
-        model = CbrEncoderModel(c, sfb, sff, settings.residual_bits, state)
+        if settings.vbr:
+            model = VbrEncoderModel(c, sfb, sff, settings.residual_bits, fpc, state)
+        else:
+            model = CbrEncoderModel(c, sfb, sff, settings.residual_bits, state)
         ehist_t, ewts_t = model.lms_snapshot
         enc = model.encode(samples[nc_full * fpc * c : frames * c])
         chunk = SeaChunk(
             channels=c,
             frames_in_chunk=tail_frames,
-            chunk_type=CHUNK_TYPE_CBR,
+            chunk_type=CHUNK_TYPE_VBR if settings.vbr else CHUNK_TYPE_CBR,
             scale_factor_bits=sfb,
             scale_factor_frames=sff,
             residual_size=residual_size,

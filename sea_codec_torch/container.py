@@ -136,6 +136,8 @@ class SeaChunk:
     ``lms_history``/``lms_weights`` are int32[channels, 4] (already widened
     from the serialized i16). ``scale_factors`` / ``residuals`` are uint8
     codes; ``vbr_residual_sizes`` holds *absolute* sizes (1..8), empty for CBR.
+    A parsed chunk also keeps its residual section as packed on the wire
+    (``residual_bytes``), the layout the decode kernels read.
     """
 
     channels: int
@@ -149,6 +151,7 @@ class SeaChunk:
     scale_factors: np.ndarray
     vbr_residual_sizes: np.ndarray = field(default_factory=lambda: np.zeros(0, np.uint8))
     residuals: np.ndarray = field(default_factory=lambda: np.zeros(0, np.uint8))
+    residual_bytes: np.ndarray = field(default_factory=lambda: np.zeros(0, np.uint8))
 
     # -- serialization ------------------------------------------------------
 
@@ -294,4 +297,5 @@ class SeaChunk:
                 raise SeaInvalidFrame("chunk too short for residuals")
             res_packed = np.frombuffer(encoded, dtype=np.uint8, count=res_bytes, offset=pos)
             chunk.residuals = bitpack.unpack_bits(res_packed, residual_size, count=n_samples)
+        chunk.residual_bytes = res_packed
         return chunk

@@ -1,7 +1,9 @@
 // Encoder scale-factor search for Hopper (sm_90a).
 //
 // Replaces the TPU kernel sea_codec_tpu/ops/pallas_encode.py
-// run_window_search (built by _make_kernel). Reference semantics
+// run_window_search (built by _make_kernel), in all the forms the encoder
+// calls: a constant residual size (CBR, VBR pass 1), per-(window, channel)
+// sizes (VBR pass 2), and ranks-only (VBR pass 1). Reference semantics
 // (src/codec/encoder_base.rs): for every window of sff frames, each of the
 // S = 2^sfb candidate scale factors runs, per sample,
 //   predict -> sea_div -> clamp -> zig-zag quantize -> dequant ->
@@ -20,6 +22,16 @@
 // shared-memory pass over the warps; the winner's state and codes pass
 // through shared memory (codes as a u8 [sff, S] buffer). The TPU kernel's
 // VMEM bounds (c <= 128 or 512 lanes, sfb <= 7) do not apply.
+//
+// Residual sizes: the constants of all eight sizes (scale-factor values and
+// reciprocals [9, S], the four curve constants, the zig-zag table with its
+// offsets, ~19 KB at S = 256) are staged in shared memory once per block,
+// and each window loads its size's into registers, so the sample loop is
+// the same for every form. The template parameters select, at compile time,
+// whether a window reads its size from rs_in[wi, ch] (else one constant
+// size for the launch) and whether the codes are kept (ranks-only skips the
+// [sff, S] code stores and the winner's code writes; the codes output is not
+// touched). Rank, argmin and state math are the same in every form.
 //
 // Arithmetic follows the reference's integer widths: sea_div in int64, the
 // rank in wrapping u64, the int32 LMS dot and weight updates wrapping
@@ -41,30 +53,36 @@ __device__ __forceinline__ bool key_less(unsigned long long r1, int o1,
   return r1 < r2 || (r1 == r2 && o1 < o2);
 }
 
+template <bool kVarRs, bool kRanksOnly>
 __global__ void window_search_kernel(
     const int16_t* __restrict__ samples,  // [nw*sff, c] interleaved PCM
     const int32_t* __restrict__ n_valid,  // [nw] valid frames, or nullptr
+    const uint8_t* __restrict__ rs_in,    // [nw, c] sizes (kVarRs only)
     const int32_t* __restrict__ hist_in,  // [c, 4]
     const int32_t* __restrict__ wts_in,   // [c, 4]
     const int32_t* __restrict__ prev_in,  // [c]
-    const float* __restrict__ sfval,      // [s] scale-factor values for rs
-    const int32_t* __restrict__ recip,    // [s] reciprocals for rs
-    const uint8_t* __restrict__ qtab,     // [2*climit+1] zig-zag table for rs
+    const float* __restrict__ sfval,      // [9, s] scale-factor values by rs
+    const int32_t* __restrict__ recip,    // [9, s] reciprocals by rs
+    const float* __restrict__ curve,      // [3, 9] c0, stepfloor, endval by rs
+    const int32_t* __restrict__ ints,     // [2, 9] kmax, quant-table offset by rs
+    const uint8_t* __restrict__ qtab,     // [qtab_len] zig-zag tables of rs 1..8
     uint8_t* __restrict__ sf_out,         // [nw, c]
-    uint8_t* __restrict__ codes_out,      // [nw*sff, c]
+    uint8_t* __restrict__ codes_out,      // [nw*sff, c] (unused if kRanksOnly)
     unsigned long long* __restrict__ ranks_out,  // [nw, c]
     int32_t* __restrict__ ehist,          // [ceil(nw/wpc), c, 4]
     int32_t* __restrict__ ewts,           // [ceil(nw/wpc), c, 4]
     int32_t* __restrict__ hist_out,       // [c, 4]
     int32_t* __restrict__ wts_out,        // [c, 4]
     int32_t* __restrict__ prev_out,       // [c]
-    int c, int s, int sff, int nw, int wpc, int rs, float c0, float stepf,
-    float endv, int kmax) {
-  extern __shared__ unsigned char smem[];
+    int c, int s, int sff, int nw, int wpc, int rs_const, int qtab_len) {
+  extern __shared__ __align__(16) unsigned char smem[];
   int32_t* smp_s = reinterpret_cast<int32_t*>(smem);
-  const int climit = 1 << rs;
-  uint8_t* qtab_s = smem + sizeof(int32_t) * sff;
-  uint8_t* qbuf = qtab_s + 2 * climit + 1;  // [sff, s] candidate codes
+  float* sfval_s = reinterpret_cast<float*>(smp_s + sff);
+  int32_t* recip_s = reinterpret_cast<int32_t*>(sfval_s + 9 * s);
+  float* curve_s = reinterpret_cast<float*>(recip_s + 9 * s);
+  int32_t* ints_s = reinterpret_cast<int32_t*>(curve_s + 27);
+  uint8_t* qtab_s = reinterpret_cast<uint8_t*>(ints_s + 18);
+  uint8_t* qbuf = qtab_s + qtab_len;  // [sff, s] candidate codes
   __shared__ int32_t st_s[8];
   __shared__ unsigned long long warp_rank[8];
   __shared__ int warp_rot[8];
@@ -78,16 +96,40 @@ __global__ void window_search_kernel(
   const int nwarps = blockDim.x >> 5;
   const bool active = tid < s;
 
-  for (int i = tid; i < 2 * climit + 1; i += blockDim.x) qtab_s[i] = qtab[i];
+  for (int i = tid; i < 9 * s; i += blockDim.x) {
+    sfval_s[i] = sfval[i];
+    recip_s[i] = recip[i];
+  }
+  for (int i = tid; i < 27; i += blockDim.x) curve_s[i] = curve[i];
+  for (int i = tid; i < 18; i += blockDim.x) ints_s[i] = ints[i];
+  for (int i = tid; i < qtab_len; i += blockDim.x) qtab_s[i] = qtab[i];
   int32_t h0 = hist_in[ch * 4], h1 = hist_in[ch * 4 + 1];
   int32_t h2 = hist_in[ch * 4 + 2], h3 = hist_in[ch * 4 + 3];
   int32_t w0 = wts_in[ch * 4], w1 = wts_in[ch * 4 + 1];
   int32_t w2 = wts_in[ch * 4 + 2], w3 = wts_in[ch * 4 + 3];
   int prev = prev_in[ch];
-  const float my_sfval = active ? sfval[tid] : 0.f;
-  const long long my_recip = active ? recip[tid] : 1;
+  __syncthreads();
+
+  // the residual size's constants, in registers for the sample loop
+  float my_sfval, c0, stepf, endv;
+  long long my_recip;
+  int climit, kmax;
+  const uint8_t* qt;  // zig-zag table entry of a zero residual
+  auto load_size = [&](int rs) {
+    my_sfval = active ? sfval_s[rs * s + tid] : 0.f;
+    my_recip = active ? recip_s[rs * s + tid] : 1;
+    climit = 1 << rs;
+    c0 = curve_s[rs];
+    stepf = curve_s[9 + rs];
+    endv = curve_s[18 + rs];
+    kmax = ints_s[rs];
+    qt = qtab_s + ints_s[9 + rs] + climit;
+  };
+  if (!kVarRs) load_size(rs_const);
 
   for (int wi = 0; wi < nw; ++wi) {
+    int rs_w = 0;
+    if (kVarRs) rs_w = rs_in[static_cast<size_t>(wi) * c + ch];
     for (int t = tid; t < sff; t += blockDim.x)
       smp_s[t] = samples[(static_cast<size_t>(wi) * sff + t) * c + ch];
     if (tid == 0 && wi % wpc == 0) {
@@ -97,6 +139,8 @@ __global__ void window_search_kernel(
     }
     __syncthreads();
     const int nv = n_valid ? n_valid[wi] : sff;
+    // a size outside 1..8 would index past the staged tables
+    if (kVarRs) load_size(min(max(rs_w, 1), 8));
 
     int32_t a0 = h0, a1 = h1, a2 = h2, a3 = h3;
     int32_t v0 = w0, v1 = w1, v2 = w2, v3 = w3;
@@ -116,14 +160,14 @@ __global__ void window_search_kernel(
         const int sn = (n > 0) - (n < 0);
         const int32_t scaled = static_cast<int32_t>(n + (sv - sn));
         const int32_t clamped = min(max(scaled, -climit), climit);
-        const int q = qtab_s[clamped + climit];
-        qbuf[t * s + tid] = static_cast<uint8_t>(q);
+        const int q = qt[clamped];
+        if (!kRanksOnly) qbuf[t * s + tid] = static_cast<uint8_t>(q);
         const int k = q >> 1;
-        float curve = __fadd_rn(0.5f, __fmul_rn(static_cast<float>(k), stepf));
-        if (k == kmax) curve = endv;
-        if (k == 0) curve = c0;
+        float cv = __fadd_rn(0.5f, __fmul_rn(static_cast<float>(k), stepf));
+        if (k == kmax) cv = endv;
+        if (k == 0) cv = c0;
         const int dq_abs =
-            static_cast<int>(floorf(__fadd_rn(__fmul_rn(my_sfval, curve), 0.5f)));
+            static_cast<int>(floorf(__fadd_rn(__fmul_rn(my_sfval, cv), 0.5f)));
         const int32_t dq = (q & 1) ? -dq_abs : dq_abs;
         const int32_t recon = min(max(pred + dq, -32768), 32767);
         if (t < nv) {
@@ -191,8 +235,10 @@ __global__ void window_search_kernel(
       sf_out[static_cast<size_t>(wi) * c + ch] = static_cast<uint8_t>(best);
       ranks_out[static_cast<size_t>(wi) * c + ch] = best_rank_s;
     }
-    for (int t = tid; t < sff; t += blockDim.x)
-      codes_out[(static_cast<size_t>(wi) * sff + t) * c + ch] = qbuf[t * s + best];
+    if (!kRanksOnly) {
+      for (int t = tid; t < sff; t += blockDim.x)
+        codes_out[(static_cast<size_t>(wi) * sff + t) * c + ch] = qbuf[t * s + best];
+    }
     __syncthreads();
   }
   if (tid == 0) {
@@ -204,30 +250,40 @@ __global__ void window_search_kernel(
   }
 }
 
+using KernelFn = decltype(&window_search_kernel<false, false>);
+
 }  // namespace
 
 extern "C" int sea_window_search(
-    const void* samples, const void* n_valid, const void* hist_in,
-    const void* wts_in, const void* prev_in, const void* sfval,
-    const void* recip, const void* qtab, void* sf_out, void* codes_out,
-    void* ranks_out, void* ehist, void* ewts, void* hist_out, void* wts_out,
-    void* prev_out, int c, int s, int sff, int nw, int wpc, int rs, float c0,
-    float stepf, float endv, int kmax, void* stream) {
+    const void* samples, const void* n_valid, const void* rs_in,
+    const void* hist_in, const void* wts_in, const void* prev_in,
+    const void* sfval, const void* recip, const void* curve, const void* ints,
+    const void* qtab, void* sf_out, void* codes_out, void* ranks_out,
+    void* ehist, void* ewts, void* hist_out, void* wts_out, void* prev_out,
+    int c, int s, int sff, int nw, int wpc, int rs_const, int ranks_only,
+    int qtab_len, void* stream) {
+  const bool var_rs = rs_in != nullptr;
+  const KernelFn kernel =
+      var_rs ? (ranks_only ? window_search_kernel<true, true> : window_search_kernel<true, false>)
+             : (ranks_only ? window_search_kernel<false, true> : window_search_kernel<false, false>);
   const int threads = s < 32 ? 32 : s;
-  const size_t smem = sizeof(int32_t) * sff + (2 << rs) + 1 +
-                      static_cast<size_t>(sff) * s;
-  cudaFuncSetAttribute(window_search_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+  // layout: samples, sfval, recip, curve, ints (4-byte words), then the
+  // zig-zag tables and the [sff, s] code buffer
+  const size_t smem = sizeof(int32_t) * (sff + 18 * s + 45) + qtab_len +
+                      (ranks_only ? 0 : static_cast<size_t>(sff) * s);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem));
-  window_search_kernel<<<c, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<c, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int16_t*>(samples), static_cast<const int32_t*>(n_valid),
-      static_cast<const int32_t*>(hist_in), static_cast<const int32_t*>(wts_in),
-      static_cast<const int32_t*>(prev_in), static_cast<const float*>(sfval),
-      static_cast<const int32_t*>(recip), static_cast<const uint8_t*>(qtab),
-      static_cast<uint8_t*>(sf_out), static_cast<uint8_t*>(codes_out),
+      static_cast<const uint8_t*>(rs_in), static_cast<const int32_t*>(hist_in),
+      static_cast<const int32_t*>(wts_in), static_cast<const int32_t*>(prev_in),
+      static_cast<const float*>(sfval), static_cast<const int32_t*>(recip),
+      static_cast<const float*>(curve), static_cast<const int32_t*>(ints),
+      static_cast<const uint8_t*>(qtab), static_cast<uint8_t*>(sf_out),
+      static_cast<uint8_t*>(codes_out),
       static_cast<unsigned long long*>(ranks_out), static_cast<int32_t*>(ehist),
       static_cast<int32_t*>(ewts), static_cast<int32_t*>(hist_out),
       static_cast<int32_t*>(wts_out), static_cast<int32_t*>(prev_out), c, s,
-      sff, nw, wpc, rs, c0, stepf, endv, kmax);
+      sff, nw, wpc, rs_const, qtab_len);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,8 @@
 """Encoder settings and input validation (reference ``src/encoder.rs``).
 
 The streaming ``SeaEncoder`` session of the JAX package is not ported yet
-(see ROADMAP.md); the one-shot API encodes through ``batch.encode_sea``.
+(see ROADMAP.md); the one-shot API encodes CBR and VBR through
+``batch.encode_sea``.
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
 from .cbr import CbrEncoderModel
 from .common import EncodedSamples, EncoderBaseState
 from .decoder import DecoderModel
+from .vbr import VbrEncoderModel
 
-__all__ = ["EncodedSamples", "EncoderBaseState", "CbrEncoderModel", "DecoderModel"]
+__all__ = ["EncodedSamples", "EncoderBaseState", "CbrEncoderModel", "VbrEncoderModel", "DecoderModel"]

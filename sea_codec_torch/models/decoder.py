@@ -1,10 +1,14 @@
 """Chunk decoder model for a single (ragged tail) chunk
 (reference ``src/codec/decoder.rs``).
 
-Full chunks decode as one batch in ``batch.decode_sea``; the ragged tail
-chunk goes through the same fused kernel by zero-padding its packed
-residuals and scale factors to a full chunk. The recurrence runs forward, so
-the real frames are unaffected by the padding, which is sliced away.
+Full chunks decode in batches in ``batch.decode_sea``; the ragged tail chunk
+goes through the same fused kernels at its own length: its residual section
+as packed on the wire already lies where the full-chunk addressing expects
+it (every window before the last is complete; the last window holds the
+leading frames), and the kernels take a partial last window. The JAX package pads
+the tail to a full chunk to reuse one compiled program; here that padding
+would only add staged bytes, and at 255 channels it can push a tail past
+the kernels' shared memory.
 """
 
 from __future__ import annotations
@@ -13,8 +17,8 @@ import numpy as np
 import torch
 
 from ..container import CHUNK_TYPE_VBR, SeaChunk
-from ..ops import bitpack
 from ..ops.fused_decode import decode_cbr_fused
+from ..ops.fused_decode_vbr import decode_vbr_fused
 from ..utils.errors import SeaInvalidFrame
 
 
@@ -24,13 +28,8 @@ class DecoderModel:
         self.scale_factor_bits = scale_factor_bits
         self.device = device
 
-    def decode_chunk(self, chunk: SeaChunk, frames_padded: int | None = None) -> np.ndarray:
-        """Decode one CBR chunk -> int16[frames * channels] interleaved,
-        padded to ``frames_padded`` frames for the kernel."""
-        if chunk.chunk_type == CHUNK_TYPE_VBR:
-            raise NotImplementedError(
-                "VBR decode is not ported yet (see ROADMAP.md, Queue A)"
-            )
+    def decode_chunk(self, chunk: SeaChunk) -> np.ndarray:
+        """Decode one chunk -> int16[frames * channels] interleaved."""
         if chunk.scale_factor_bits != self.scale_factor_bits:
             raise SeaInvalidFrame(
                 "chunk scale_factor_bits "
@@ -39,21 +38,16 @@ class DecoderModel:
         c = self.channels
         f = chunk.frames_in_chunk
         sff = chunk.scale_factor_frames
-        rs = chunk.residual_size
         w = -(-f // sff)
-        fp = max(frames_padded or f, f)
-        wp = -(-fp // sff)
-        res = np.zeros((1, bitpack.packed_byte_len(rs, fp * c)), np.uint8)
-        packed = bitpack.pack_bits(chunk.residuals, rs)
-        res[0, : packed.shape[0]] = packed
-        sf = np.zeros((1, wp, c), np.uint8)
-        sf[0, :w] = chunk.scale_factors.reshape(w, c)
-        dev = self.device
-        out = decode_cbr_fused(
-            torch.from_numpy(res).to(dev),
-            torch.from_numpy(sf).to(dev),
-            torch.from_numpy(chunk.lms_history.reshape(1, c, 4).astype(np.int32)).to(dev),
-            torch.from_numpy(chunk.lms_weights.reshape(1, c, 4).astype(np.int32)).to(dev),
-            sfb=self.scale_factor_bits, rs=rs, sff=sff, frames=fp,
-        )
-        return out.cpu().numpy().reshape(fp * c)[: f * c]
+        up = lambda a: torch.from_numpy(np.require(a, requirements=("C", "W"))).to(self.device)
+        sf = up(chunk.scale_factors.reshape(1, w, c))
+        hist = up(chunk.lms_history.reshape(1, c, 4).astype(np.int32))
+        wts = up(chunk.lms_weights.reshape(1, c, 4).astype(np.int32))
+        packed = up(chunk.residual_bytes[None])  # as on the wire
+        kw = dict(sfb=self.scale_factor_bits, sff=sff, frames=f)
+        if chunk.chunk_type == CHUNK_TYPE_VBR:
+            rs = up(chunk.vbr_residual_sizes.reshape(1, w, c))
+            out = decode_vbr_fused(packed, sf, rs, hist, wts, **kw)
+        else:
+            out = decode_cbr_fused(packed, sf, hist, wts, rs=chunk.residual_size, **kw)
+        return out.cpu().numpy().reshape(f * c)

@@ -143,6 +143,30 @@ def unpack_bits_rows(data: np.ndarray, widths: np.ndarray | int, count: int) -> 
     return vals.astype(np.uint8)
 
 
+def pack_bits_rows(values: np.ndarray, widths: np.ndarray | int) -> np.ndarray:
+    """Pack each row of ``values`` [N, count] -> uint8[N, row_bytes].
+
+    ``widths`` is a scalar or [N, count]; with per-row widths, every row must
+    pack to the same total bit count (true for the batch encoder: full chunks
+    share section lengths). Vectorized mirror of ``pack_bits``.
+    """
+    values = np.asarray(values, dtype=np.uint32)
+    n, count = values.shape
+    j = np.arange(8, dtype=np.int64)
+    bits8 = (values[:, :, None] >> (7 - j)[None, None, :].astype(np.uint32)) & 1
+    if np.isscalar(widths) or np.ndim(widths) == 0:
+        w = int(widths)
+        flat = bits8[:, :, 8 - w :].reshape(n, count * w)
+        return np.packbits(flat.astype(np.uint8), axis=1, bitorder="big")
+    widths = np.asarray(widths, dtype=np.int64)
+    valid = j[None, None, :] >= (8 - widths)[:, :, None]  # [N, count, 8]
+    total = int(widths[0].sum())
+    if not np.all(widths.sum(axis=1) == total):
+        raise ValueError("rows must share total bit count")
+    flat = bits8.reshape(n, -1)[valid.reshape(n, -1)].reshape(n, total)
+    return np.packbits(flat.astype(np.uint8), axis=1, bitorder="big")
+
+
 def packed_byte_len(widths: np.ndarray | int, count: int | None = None) -> int:
     """Number of bytes produced by packing ``count`` items of given widths."""
     if np.isscalar(widths) or np.ndim(widths) == 0:

@@ -35,24 +35,32 @@ def sea_div(v: torch.Tensor, recip: torch.Tensor) -> torch.Tensor:
     return n + (torch.sign(v) - torch.sign(n))
 
 
-def encode_windows_fn(samples, n_valid, hist0, wts0, prev_sf0, *, sfb, rs, sff):
+def encode_windows_fn(
+    samples, n_valid, hist0, wts0, prev_sf0, *, sfb, rs, sff, ranks_only=False
+):
     """Run the scale-factor search over consecutive windows of one chunk.
 
     ``samples`` [W*sff, C] (any integer dtype), ``n_valid`` a sequence of W
     host ints (valid frames per window), ``hist0``/``wts0`` int32[C, 4],
-    ``prev_sf0`` int32[C], constant residual size ``rs``. Returns
-    (sf uint8[W, C], codes uint8[W*sff, C], ranks int64[W, C],
-    hist int32[C, 4], wts int32[C, 4], prev_sf int32[C])."""
+    ``prev_sf0`` int32[C]; ``rs`` is the residual size, an int (CBR, VBR
+    pass 1) or an integer tensor [W, C] of per-(window, channel) sizes 1..8
+    (VBR pass 2). Returns (sf uint8[W, C], codes uint8[W*sff, C], ranks
+    int64[W, C], hist int32[C, 4], wts int32[C, 4], prev_sf int32[C]);
+    ``ranks_only`` skips the winner's codes (the VBR analyze pass reads
+    only ranks and state) and returns None for them."""
     device = samples.device
     s = 1 << sfb
     c = samples.shape[1]
     w = samples.shape[0] // sff
-    sfval_t, recip_t, c0_t, stepf_t, endv_t, kmax_t, _cl = tables.rs_tables(sfb)
-    consts = (float(c0_t[rs]), float(stepf_t[rs]), float(endv_t[rs]), int(kmax_t[rs]))
-    sfval = torch.as_tensor(sfval_t[rs], device=device)[:, None]  # [S, 1]
-    recip = torch.as_tensor(recip_t[rs], device=device).to(torch.int64)[:, None]
-    qtab = torch.as_tensor(tables.quant_row(rs).astype("int64"), device=device)
-    climit = 1 << rs
+    sfval_t, recip_t, c0_t, stepf_t, endv_t, kmax_t, climit_t = (
+        torch.as_tensor(t, device=device) for t in tables.rs_tables(sfb)
+    )
+    recip_t = recip_t.to(torch.int64)
+    qtab = torch.as_tensor(tables.quant_tab().astype("int64"), device=device)
+    qoff = torch.as_tensor(tables.quant_offsets().astype("int64"), device=device)
+    if not torch.is_tensor(rs):
+        rs = torch.full((w, c), int(rs), dtype=torch.int64, device=device)
+    rs = rs.to(device=device, dtype=torch.int64)
     cand = torch.arange(s, device=device)[:, None]  # [S, 1]
     x = samples.to(torch.int64).reshape(w, sff, c)
     hist = hist0.to(torch.int64)
@@ -60,6 +68,13 @@ def encode_windows_fn(samples, n_valid, hist0, wts0, prev_sf0, *, sfb, rs, sff):
     prev = prev_sf0.to(torch.int64)
     sf_out, codes_out, ranks_out = [], [], []
     for wi in range(w):
+        # this window's constants per channel: tables rows [C, S] -> [S, C]
+        r = rs[wi]  # [C]
+        sfval = sfval_t[r].T
+        recip = recip_t[r].T
+        consts = (c0_t[r], stepf_t[r], endv_t[r], kmax_t[r])
+        climit = climit_t[r].to(torch.int64)
+        qbase = qoff[r] + climit  # table index of a zero residual
         hh = hist.expand(s, c, 4)
         ww = wts.expand(s, c, 4)
         rank = torch.zeros((s, c), dtype=torch.int64, device=device)
@@ -68,7 +83,7 @@ def encode_windows_fn(samples, n_valid, hist0, wts0, prev_sf0, *, sfb, rs, sff):
             smp = x[wi, t]  # [C]
             pred = lms.predict(hh, ww)  # [S, C]
             scaled = sea_div(smp - pred, recip)
-            q = qtab[scaled.clamp(-climit, climit) + climit]
+            q = qtab[torch.minimum(torch.maximum(scaled, -climit), climit) + qbase]
             qs.append(q)
             if t >= n_valid[wi]:
                 continue  # masked step: codes only, state frozen
@@ -85,17 +100,19 @@ def encode_windows_fn(samples, n_valid, hist0, wts0, prev_sf0, *, sfb, rs, sff):
         idx = best[None, :]
         sf_out.append(best.to(torch.uint8))
         ranks_out.append(rank.gather(0, idx)[0])
-        codes_out.append(torch.stack(qs).gather(1, idx[None].expand(sff, 1, c))[:, 0])
+        if not ranks_only:
+            codes_out.append(torch.stack(qs).gather(1, idx[None].expand(sff, 1, c))[:, 0])
         hist = hh.gather(0, idx[..., None].expand(1, c, 4))[0]
         wts = ww.gather(0, idx[..., None].expand(1, c, 4))[0]
         prev = best
     if w == 0:
         empty = torch.zeros((0, c), dtype=torch.uint8, device=device)
-        return empty, empty, torch.zeros((0, c), dtype=torch.int64, device=device), hist0, wts0, prev_sf0
+        codes = None if ranks_only else empty
+        return empty, codes, torch.zeros((0, c), dtype=torch.int64, device=device), hist0, wts0, prev_sf0
     i32 = torch.int32
     return (
         torch.stack(sf_out),
-        torch.cat(codes_out).to(torch.uint8),
+        None if ranks_only else torch.cat(codes_out).to(torch.uint8),
         torch.stack(ranks_out),
         hist.to(i32),
         wts.to(i32),

@@ -64,8 +64,8 @@ def decode_cbr_fused(res_bytes, sf_codes, hist0, wts0, *, sfb, rs, sff, frames):
         )
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-    sfval_t, _recip, c0_t, stepf_t, endv_t, kmax_t, _cl = tables.rs_tables(sfb)
-    sfval = torch.as_tensor(sfval_t[rs], device=device)
+    _sfval, _recip, c0_t, stepf_t, endv_t, kmax_t, _cl = tables.rs_tables(sfb)
+    sfval = tables.kernel_tables(sfb, device)[0][rs]  # no host copy per launch
     res_bytes = res_bytes.contiguous()
     sf_codes = sf_codes.contiguous()
     hist0 = hist0.contiguous()

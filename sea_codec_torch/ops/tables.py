@@ -217,11 +217,22 @@ def rs_tables(scale_factor_bits: int):
     return sfval, recip, c0, stepfloor, endval, kmax, climit
 
 
-def quant_row(rs: int) -> np.ndarray:
-    """uint8[2^(rs+1) + 1] zig-zag table of one residual size, indexed by
-    clamped + 2^rs (reference qt.rs:33-52)."""
-    off = int(quant_offsets()[rs])
-    return quant_tab()[off : off + (2 << rs) + 1]
+@lru_cache(maxsize=None)
+def kernel_tables(scale_factor_bits: int, device) -> tuple:
+    """``rs_tables`` as the CUDA kernels take them, on ``device`` and made
+    once per (sfb, device), so that a launch copies nothing from the host
+    (a pageable host-to-device copy waits for the stream):
+    (sfval f32[9, S], recip i32[9, S], curve f32[3, 9] rows c0, stepfloor,
+    endval, ints i32[2, 9] rows kmax and ``quant_offsets``, quant table
+    u8[1028])."""
+    import torch
+
+    sfval, recip, c0, stepf, endv, kmax, _cl = rs_tables(scale_factor_bits)
+    host = (
+        sfval, recip, np.stack([c0, stepf, endv]), np.stack([kmax, quant_offsets()]),
+        quant_tab().copy(),
+    )
+    return tuple(torch.as_tensor(a, device=device) for a in host)
 
 
 @lru_cache(maxsize=None)

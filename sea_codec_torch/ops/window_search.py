@@ -6,10 +6,16 @@ Replaces the TPU kernel ``sea_codec_tpu/ops/pallas_encode.py``
 one launch for every window of every chunk; see the source note there). On
 a CPU tensor it runs the plain PyTorch version, ``window_search_plain``,
 which is ``ops.device_encode.encode_windows_fn`` plus the per-chunk entry
-state snapshots. ``launches`` counts kernel launches.
+state snapshots. ``launches`` counts kernel launches, and
+``ranks_only_launches`` those of them in the ranks-only form.
 
-Both return ``(sf uint8[W, C], codes uint8[W*sff, C], ranks int64[W, C],
-ehist int32[NC, C, 4], ewts int32[NC, C, 4], hist int32[C, 4],
+The residual size ``rs`` is an int (CBR, and VBR pass 1 at ``base+1``) or
+a tensor uint8/int32[W, C] of per-(window, channel) sizes 1..8 (VBR pass 2).
+With ``ranks_only`` (VBR pass 1, which reads only ranks and state) the
+winner's codes are not kept: the codes output is None.
+
+Both return ``(sf uint8[W, C], codes uint8[W*sff, C] | None, ranks
+int64[W, C], ehist int32[NC, C, 4], ewts int32[NC, C, 4], hist int32[C, 4],
 wts int32[C, 4], prev_sf int32[C])``: ranks are the reference's u64 values
 held in int64 (same bits), and ``ehist``/``ewts`` are the LMS state at the
 first window of each run of ``wpc`` windows (the chunk-entry state a chunk
@@ -26,9 +32,12 @@ from . import cuda_build, tables
 from .device_encode import encode_windows_fn
 
 launches = 0
+ranks_only_launches = 0
 
 
-def window_search_plain(samples, n_valid, hist0, wts0, prev0, *, sfb, rs, sff, wpc):
+def window_search_plain(
+    samples, n_valid, hist0, wts0, prev0, *, sfb, rs, sff, wpc, ranks_only=False
+):
     """Plain PyTorch version of the kernel: same inputs, same outputs."""
     nw = samples.shape[0] // sff
     nv = [sff] * nw if n_valid is None else [int(v) for v in n_valid.tolist()]
@@ -40,26 +49,43 @@ def window_search_plain(samples, n_valid, hist0, wts0, prev0, *, sfb, rs, sff, w
         ewts.append(wts)
         sf, codes, ranks, hist, wts, prev = encode_windows_fn(
             samples[start * sff : end * sff], nv[start:end], hist, wts, prev,
-            sfb=sfb, rs=rs, sff=sff,
+            sfb=sfb, rs=rs[start:end] if torch.is_tensor(rs) else rs, sff=sff,
+            ranks_only=ranks_only,
         )
         outs.append((sf, codes, ranks))
-    sf, codes, ranks = (torch.cat(p) for p in zip(*outs))
-    return sf, codes, ranks, torch.stack(ehist), torch.stack(ewts), hist, wts, prev
+    sf, codes, ranks = zip(*outs)
+    codes = None if ranks_only else torch.cat(codes)
+    return (
+        torch.cat(sf), codes, torch.cat(ranks), torch.stack(ehist), torch.stack(ewts),
+        hist, wts, prev,
+    )
 
 
-def window_search(samples, n_valid, hist0, wts0, prev0, *, sfb, rs, sff, wpc):
+def _smem_bytes(s, sff, ranks_only):
+    """Dynamic shared memory of one block (layout in window_search.cu): the
+    kernel stages every residual size's constants."""
+    words = sff + 2 * 9 * s + 5 * 9  # samples, sfval+recip tables, constants
+    return 4 * words + tables.QUANT_TAB_SIZE + (0 if ranks_only else sff * s)
+
+
+def window_search(
+    samples, n_valid, hist0, wts0, prev0, *, sfb, rs, sff, wpc, ranks_only=False
+):
     """Search every window of ``samples`` int16[W*sff, C] in order.
 
     ``n_valid`` is None (every window full) or int32[W] valid frames per
     window; ``hist0``/``wts0`` int32[C, 4] and ``prev0`` int32[C] are the
-    entry state. Returns the tuple described in the module docstring."""
-    global launches
+    entry state; ``rs`` is described in the module docstring. Returns the
+    tuple described there."""
+    global launches, ranks_only_launches
     device = samples.device
     c = samples.shape[1]
-    # shared memory per block: sff samples + [sff, 2^sfb] codes + quant table
-    smem = sff * ((1 << sfb) + 4) + 513
-    if not (1 <= sfb <= 8 and 1 <= rs <= 8 and sff >= 1 and wpc >= 1 and smem <= 230_000):
-        raise ValueError(f"bad search config sfb={sfb} rs={rs} sff={sff} wpc={wpc}")
+    s = 1 << sfb
+    per_window = torch.is_tensor(rs)
+    if not (1 <= sfb <= 8 and sff >= 1 and wpc >= 1):
+        raise ValueError(f"bad search config sfb={sfb} sff={sff} wpc={wpc}")
+    if _smem_bytes(s, sff, ranks_only) > cuda_build.SMEM_LIMIT:
+        raise ValueError(f"sff={sff} at sfb={sfb} exceeds the kernel's shared memory")
     if samples.dim() != 2 or samples.shape[0] % sff or not 1 <= c <= 255:
         raise ValueError(f"samples must be [W*sff, C<=255], got {tuple(samples.shape)}")
     nw = samples.shape[0] // sff
@@ -72,24 +98,26 @@ def window_search(samples, n_valid, hist0, wts0, prev0, *, sfb, rs, sff, wpc):
         n_valid.shape != (nw,) or n_valid.dtype != torch.int32 or n_valid.device != device
     ):
         raise ValueError(f"n_valid must be int32[{nw}] on {device}")
+    if per_window:
+        if rs.shape != (nw, c) or rs.dtype not in (torch.uint8, torch.int32) or rs.device != device:
+            raise ValueError(f"rs must be uint8/int32[{nw}, {c}] on {device}")
+    elif not 1 <= rs <= 8:
+        raise ValueError(f"bad residual size {rs}")
     if device.type == "cpu":
         return window_search_plain(
-            samples, n_valid, hist0, wts0, prev0, sfb=sfb, rs=rs, sff=sff, wpc=wpc
+            samples, n_valid, hist0, wts0, prev0,
+            sfb=sfb, rs=rs, sff=sff, wpc=wpc, ranks_only=ranks_only,
         )
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     if samples.dtype != torch.int16:
         raise TypeError(f"samples must be int16, got {samples.dtype}")
 
-    s = 1 << sfb
-    sfval_t, recip_t, c0_t, stepf_t, endv_t, kmax_t, _cl = tables.rs_tables(sfb)
-    sfval = torch.as_tensor(sfval_t[rs], device=device)
-    recip = torch.as_tensor(recip_t[rs], device=device)
-    qtab = torch.as_tensor(tables.quant_row(rs).copy(), device=device)
+    sfval, recip, curve, ints, qtab = tables.kernel_tables(sfb, device)
     nch = -(-nw // wpc)
     u8, i32 = torch.uint8, torch.int32
     sf = torch.empty((nw, c), dtype=u8, device=device)
-    codes = torch.empty((nw * sff, c), dtype=u8, device=device)
+    codes = None if ranks_only else torch.empty((nw * sff, c), dtype=u8, device=device)
     ranks = torch.empty((nw, c), dtype=torch.int64, device=device)
     ehist = torch.empty((nch, c, 4), dtype=i32, device=device)
     ewts = torch.empty((nch, c, 4), dtype=i32, device=device)
@@ -98,28 +126,31 @@ def window_search(samples, n_valid, hist0, wts0, prev0, *, sfb, rs, sff, wpc):
     prev = torch.empty((c,), dtype=i32, device=device)
     if nw == 0:
         return sf, codes, ranks, ehist, ewts, hist0.clone(), wts0.clone(), prev0.clone()
+    rs_w = rs.to(u8).contiguous() if per_window else None
+    nv = None if n_valid is None else n_valid.contiguous()
     samples = samples.contiguous()
     hist0, wts0, prev0 = hist0.contiguous(), wts0.contiguous(), prev0.contiguous()
     fn = _launcher()
+    ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(
-            samples.data_ptr(), None if n_valid is None else n_valid.contiguous().data_ptr(),
-            hist0.data_ptr(), wts0.data_ptr(), prev0.data_ptr(), sfval.data_ptr(),
-            recip.data_ptr(), qtab.data_ptr(), sf.data_ptr(), codes.data_ptr(),
-            ranks.data_ptr(), ehist.data_ptr(), ewts.data_ptr(), hist.data_ptr(),
-            wts.data_ptr(), prev.data_ptr(), c, s, sff, nw, wpc, rs,
-            float(c0_t[rs]), float(stepf_t[rs]), float(endv_t[rs]), int(kmax_t[rs]),
-            stream,
+            samples.data_ptr(), ptr(nv), ptr(rs_w), hist0.data_ptr(), wts0.data_ptr(), prev0.data_ptr(),
+            sfval.data_ptr(), recip.data_ptr(), curve.data_ptr(), ints.data_ptr(),
+            qtab.data_ptr(), sf.data_ptr(), ptr(codes), ranks.data_ptr(),
+            ehist.data_ptr(), ewts.data_ptr(), hist.data_ptr(), wts.data_ptr(),
+            prev.data_ptr(), c, s, sff, nw, wpc, 0 if per_window else int(rs),
+            int(ranks_only), qtab.numel(), stream,
         )
     cuda_build.check(rc, "sea_window_search")
     launches += 1
+    ranks_only_launches += int(ranks_only)
     return sf, codes, ranks, ehist, ewts, hist, wts, prev
 
 
 def _launcher():
     fn = cuda_build.load("window_search").sea_window_search
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p] * 16 + [i] * 6 + [f, f, f, i, p]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * 19 + [i] * 8 + [p]
     fn.restype = ctypes.c_int
     return fn

@@ -1,7 +1,7 @@
-"""One-shot CBR round trip of the PyTorch port (``device="cpu"``: the plain
+"""One-shot round trip of the PyTorch port (``device="cpu"``: the plain
 versions of the kernels) against the JAX package and the committed
-fixtures: the same ``.sea`` bytes and the same decoded PCM, bit for bit.
-VBR and the session engine are outside the port so far and raise."""
+fixtures, CBR and VBR: the same ``.sea`` bytes and the same decoded PCM,
+bit for bit. The session engine is outside the port so far and raises."""
 
 from __future__ import annotations
 
@@ -27,7 +27,10 @@ def _fixture(name):
     return np.load(os.path.join(FIXTURE_DIR, name + ".npz"))
 
 
-@pytest.mark.parametrize("name", ["cbr_stereo_b3", "cbr_8ch_b8", "cbr_mono_b1_ragged"])
+@pytest.mark.parametrize(
+    "name",
+    ["cbr_stereo_b3", "cbr_8ch_b8", "cbr_mono_b1_ragged", "vbr_stereo_b25", "vbr_mono_b5_ragged"],
+)
 def test_fixture_round_trip(name):
     fx = _fixture(name)
     st = EncoderSettings(
@@ -35,6 +38,7 @@ def test_fixture_round_trip(name):
         scale_factor_frames=int(fx["sff"]),
         residual_bits=float(fx["rb"]),
         frames_per_chunk=int(fx["fpc"]),
+        vbr=bool(fx["vbr"]),
     )
     encoded = sea_encode(fx["input"], int(fx["sample_rate"]), int(fx["channels"]), st, device="cpu")
     assert encoded == fx["encoded"].tobytes()
@@ -70,12 +74,10 @@ def test_seeded_round_trip_matches_jax(channels, frames, fpc, sff, sfb, rb):
 
 
 def test_vbr_and_session_raise():
+    """VBR encodes and decodes now; only the session engine raises."""
     sig = varied_signal(1, 200, seed=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sea_encode(sig, 8000, 1, EncoderSettings(vbr=True, residual_bits=2.5), device="cpu")
-    for name in ("vbr_mono_b5_ragged", "vbr_stereo_b25"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sea_decode(_fixture(name)["encoded"].tobytes(), device="cpu")
+    encoded = sea_encode(sig, 8000, 1, EncoderSettings(vbr=True, residual_bits=2.5), device="cpu")
+    assert sea_decode(encoded, device="cpu").samples.shape == sig.shape
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sea_encode(sig, 8000, 1, engine="session", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
