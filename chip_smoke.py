@@ -4,7 +4,7 @@
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Phases, in order; any failure exits non-zero:
 
-1. Build the three CUDA kernels from ``sea_codec_torch/csrc`` (one nvcc
+1. Build the six CUDA kernels from ``sea_codec_torch/csrc`` (one nvcc
    each, in parallel) and print the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the same inputs,
    bit for bit (tolerance 0: an integer codec): the fused CBR decode over
@@ -14,14 +14,31 @@ Phases, in order; any failure exits non-zero:
    check against the table build; the window search over sfb 1..8 x rs
    1..8 on clipping stress signals, with and without a ragged tail, and in
    its VBR forms (per-window sizes; ranks-only, also against the full form).
+   The kernels of the two-kernel decode: the LMS recurrence on random dq
+   streams (1 to 80,000 streams, odd frame counts, extreme weights); the
+   CBR dequant over rs 1..8 x sfb {1,4,8} x C {1,2,3,8,255} and the VBR
+   dequant over random size tables, both with full and partial last
+   windows and both against the table build for every (sfb, rs, sf, code);
+   and a batch whose rows exceed the fused kernel's shared memory, which
+   the fused wrapper refuses and the router decodes on the two-kernel path.
 3. The committed CBR and VBR fixtures: ``sea_encode`` gives their bytes and
-   ``sea_decode`` their PCM; tail-only 255-channel files equal to plain.
-4. The main paths at real size: a 3-minute 44.1 kHz stereo signal
-   (7,938,000 frames: 1,550 full chunks and a ragged tail) through
-   ``sea_encode`` then ``sea_decode`` on the card, once with default
-   settings (CBR) and once with VBR at 2.5 bits; each checked against the
-   plain decode on the CPU, with the kernels' launch counts set to 0 just
-   before each path and read just after.
+   ``sea_decode`` their PCM, through the batch engine and through the
+   sessions (``engine="session"``); ``SeaDecoder.seek`` and ``decode_range``
+   at ranges inside chunks and into the tail; tail-only 255-channel files
+   equal to plain.
+4. The main paths at real size, each checked against a plain decode on the
+   CPU, with the kernels' launch counts set to 0 just before each path and
+   read just after. (a) A 3-minute 44.1 kHz stereo signal (7,938,000
+   frames: 1,550 full chunks and a ragged tail) through ``sea_encode`` then
+   ``sea_decode`` on the card, once with default settings (CBR) and once
+   with VBR at 2.5 bits. (b) ``decode_corpus`` on a corpus of 34 files,
+   ~180 Msamples: CBR defaults and VBR at 2.5 bits, stereo and 3-channel
+   files of differing ragged lengths and a tail-only 255-channel file per
+   mode, once with the default routing and once with the fused kernels off
+   (``SEA_FUSED_PROLOG=0``: every batch on the two-kernel path); every
+   file's PCM equal to ``decode_sea``'s. (c) One file per mode through
+   ``SeaEncoder``/``SeaDecoder`` chunk by chunk, bytes equal to the batch
+   engine's.
 5. The kernels at the main-path shapes: each decode kernel equal to its
    plain version on all full chunks; the search kernel equal to the CBR
    file's scale factors, codes and chunk states, and to its plain version
@@ -30,7 +47,9 @@ Phases, in order; any failure exits non-zero:
    plain version on the first two chunks and on the tail. Times of each
    kernel and its plain version, beside two least times for the same work:
    the roofline (bytes or operations) and the serial chain at the highest
-   SM clock; the VBR host pack's time on its own line.
+   SM clock; the VBR host pack's time on its own line. The two-kernel
+   decode's kernels at the same shape [1550, 5120, 2], and its total beside
+   the fused kernel's time, taken in turns.
 
 The last lines are the kernels' JSON line, the card line and the result
 line. Imports nothing of JAX or of the JAX package.
@@ -62,6 +81,15 @@ SEARCH_OPS_PER_STEP = (54, 5)
 # a load, an add and a select-add for wsum and the prefix
 VBR_DECODE_OPS_PER_SAMPLE = (35, 5)
 VBR_DECODE_OPS_PER_SIZE = 3
+# the standalone recurrence's frame step: the dot (4), >>13, +dq, clamp (2),
+# the weight step (>>4, negate, 4 x compare-select-add), the dq load and the
+# store with their addresses (4); no f32
+LMS_OPS_PER_SAMPLE = (25, 0)
+# the dequant prologs' frame step: bit offset, byte index, two guarded byte
+# loads, window, shift, mask, k, sign (3), store address (2), loop (3); f32:
+# I2F, 2 FMUL, 2 FADD, floor, F2I. VBR adds the index clamp.
+DEQUANT_OPS_PER_SAMPLE = (24, 7)
+VBR_DEQUANT_OPS_PER_SAMPLE = (26, 7)
 
 # The serial chain each kernel walks, as (integer/f32 instructions,
 # shared-memory loads, shuffles or barriers) that depend on each other in
@@ -416,6 +444,145 @@ def search_sweep_vbr(rng):
     return worst
 
 
+def lms_sweep(rng):
+    """The recurrence kernel on random dq streams and entry states: 1 to
+    80,000 streams (both block widths of the launcher), frame counts that
+    are multiples of nothing, weights up to the whole int32 range."""
+    import torch
+
+    from sea_codec_torch.ops.lms_decode import lms_decode, lms_decode_plain
+
+    shapes = [(1, 1, 1), (1, 37, 1), (3, 200, 2), (17, 333, 3), (2, 65, 255),
+              (600, 97, 8), (40000, 33, 2)]
+    worst = 0
+    for i, (n, f, c) in enumerate(shapes):
+        lim = (1 << 14, 1 << 24, 1 << 31)[i % 3]
+        dq = rng.integers(-27090, 27091, (f, n, c)).astype(np.int16)
+        hist = rng.integers(-32768, 32768, (n, c, 4)).astype(np.int32)
+        wts = rng.integers(-lim, lim, (n, c, 4)).astype(np.int32)
+        cpu = [torch.from_numpy(a) for a in (dq, hist, wts)]
+        got = lms_decode(*[t.cuda() for t in cpu])
+        worst = max(worst, worst_of([got], [lms_decode_plain(*cpu)], f"lms_decode n={n} f={f} c={c}"))
+    torch.cuda.synchronize()
+    log(f"[phase 2] LMS recurrence == plain on {len(shapes)} shapes "
+        f"(streams {shapes[0][0] * shapes[0][2]}..{shapes[-1][0] * shapes[-1][2]}, weights to 2^31)")
+    return worst
+
+
+def dequant_sweeps(rng):
+    """Both dequant kernels against their plain versions: CBR over rs 1..8 x
+    sfb 1,4,8 x C 1,2,3,8,255, VBR over random size tables 1..8, each with
+    full and partial last windows; returns (cbr worst, vbr worst)."""
+    import torch
+
+    from sea_codec_torch.ops import dequant
+
+    geoms = ((200, 20), (197, 20), (61, 7), (40, 1))  # (frames, sff)
+    worst_c = cases_c = 0
+    for rs in range(1, 9):
+        for sfb in (1, 4, 8):
+            for c in (1, 2, 3, 8, 255):
+                frames, sff = geoms[cases_c % 4]
+                n = 3
+                res = rng.integers(0, 256, (n, -(-frames * c * rs // 8)), dtype=np.uint8)
+                sf = rng.integers(0, 1 << sfb, (n, -(-frames // sff), c), dtype=np.uint8)
+                cpu = [torch.from_numpy(a) for a in (res, sf)]
+                kw = dict(sfb=sfb, rs=rs, sff=sff, frames=frames)
+                got = dequant.unpack_dequant_cbr(*[t.cuda() for t in cpu], **kw)
+                want = dequant.unpack_dequant_cbr_plain(*cpu, **kw)
+                worst_c = max(worst_c, worst_of([got], [want], f"dequant_cbr rs={rs} sfb={sfb} c={c}"))
+                cases_c += 1
+    worst_v = cases_v = 0
+    for sfb in (1, 4, 8):
+        for c in (1, 2, 3, 8, 255):
+            for frames, sff in geoms:
+                cpu = [torch.from_numpy(a) for a in random_vbr_batch(rng, 3, c, sfb, frames, sff)[:3]]
+                kw = dict(sfb=sfb, sff=sff, frames=frames)
+                got = dequant.unpack_dequant_vbr(*[t.cuda() for t in cpu], **kw)
+                want = dequant.unpack_dequant_vbr_plain(*cpu, **kw)
+                worst_v = max(worst_v, worst_of([got], [want], f"dequant_vbr sfb={sfb} c={c} frames={frames}"))
+                cases_v += 1
+    torch.cuda.synchronize()
+    log(f"[phase 2] CBR dequant == plain on {cases_c} configs (rs 1..8 x sfb 1,4,8 x C 1,2,3,8,255), "
+        f"VBR dequant == plain on {cases_v} configs (sizes 1..8 per window x sfb 1,4,8 x C 1,2,3,8,255); "
+        "full and partial last windows")
+    return worst_c, worst_v
+
+
+def dequant_kernels_exhaustive():
+    """Both dequant kernels against the table build for every (sfb, rs, sf,
+    code): one frame, one window, one (sf, code) per stream; the VBR kernel
+    with each stream's own size."""
+    import torch
+
+    from sea_codec_torch.ops import bitpack, dequant, tables
+
+    c = 255
+    for sfb in range(1, 9):
+        s = 1 << sfb
+        items = [(rs, sf, q) for rs in range(1, 9) for sf in range(s) for q in range(1 << rs)]
+        for rs in range(1, 9):
+            mine = [(sf, q) for r, sf, q in items if r == rs]
+            mine += [(0, 0)] * (-len(mine) % c)
+            sf_a, q_a = (np.asarray(v).reshape(-1, c) for v in zip(*mine))
+            res = np.stack([bitpack.pack_bits(row, rs) for row in q_a])
+            got = dequant.unpack_dequant_cbr(
+                torch.from_numpy(res).cuda(), torch.from_numpy(sf_a.astype(np.uint8)[:, None]).cuda(),
+                sfb=sfb, rs=rs, sff=1, frames=1).cpu().numpy()
+            check(np.array_equal(got[0], tables.dqt(rs, sfb)[sf_a, q_a]),
+                  f"dequant_cbr sfb={sfb} rs={rs} != tables.dqt")
+        items += [(1, 0, 0)] * (-len(items) % c)
+        rs_a, sf_a, q_a = (np.asarray(v).reshape(-1, c) for v in zip(*items))
+        rows = [bitpack.pack_bits(q, r) for q, r in zip(q_a, rs_a)]
+        res = np.zeros((rs_a.shape[0], max(len(r) for r in rows)), np.uint8)
+        for i, r in enumerate(rows):
+            res[i, : len(r)] = r
+        got = dequant.unpack_dequant_vbr(
+            *(torch.from_numpy(a).cuda() for a in (res, sf_a.astype(np.uint8)[:, None], rs_a.astype(np.uint8)[:, None])),
+            sfb=sfb, sff=1, frames=1).cpu().numpy()
+        want = np.array([tables.dqt(r, sfb)[f, q] for r, f, q in zip(rs_a.ravel(), sf_a.ravel(), q_a.ravel())])
+        check(np.array_equal(got.reshape(-1), want), f"dequant_vbr sfb={sfb} != tables.dqt")
+    log("[phase 2] CBR and VBR dequant kernels == tables.dqt for every (sfb, rs, sf, code)")
+
+
+def oversize_rows(rng):
+    """Rows longer than the fused CBR kernel's shared memory (255 channels x
+    1,000 frames x 8 bits = 255,000 bytes): the fused wrapper refuses them
+    before any launch, and the router decodes them on the two-kernel path,
+    equal to the plain version."""
+    import torch
+
+    from sea_codec_torch.ops import cuda_build, dequant, fused_decode, lms_decode
+    from sea_codec_torch.ops.device_decode import decode_chunks_packed
+
+    n, frames, c, rs, sfb, sff = 2, 1000, 255, 8, 4, 20
+    res = rng.integers(0, 256, (n, frames * c * rs // 8), dtype=np.uint8)
+    check(res.shape[1] > cuda_build.SMEM_LIMIT, "the oversize case fits shared memory")
+    sf = rng.integers(0, 1 << sfb, (n, frames // sff, c), dtype=np.uint8)
+    hist = rng.integers(-32768, 32768, (n, c, 4)).astype(np.int32)
+    wts = rng.integers(-(1 << 20), 1 << 20, (n, c, 4)).astype(np.int32)
+    cpu = [torch.from_numpy(a) for a in (res, sf, hist, wts)]
+    gpu = [t.cuda() for t in cpu]
+    kw = dict(sfb=sfb, sff=sff, frames=frames)
+    try:
+        fused_decode.decode_cbr_fused(*gpu, rs=rs, **kw)
+    except ValueError:
+        pass
+    else:
+        raise SmokeFailure("decode_cbr_fused took a row wider than shared memory")
+    before = (fused_decode.launches, dequant.cbr_launches, lms_decode.launches)
+    got = decode_chunks_packed(gpu[0], gpu[1], None, gpu[2], gpu[3], residual_size=rs, **kw)
+    torch.cuda.synchronize()
+    after = (fused_decode.launches, dequant.cbr_launches, lms_decode.launches)
+    check(after == (before[0], before[1] + 1, before[2] + 1),
+          f"oversize rows: expected one dequant and one recurrence launch, counts {before} -> {after}")
+    want = decode_chunks_packed(cpu[0], cpu[1], None, cpu[2], cpu[3], residual_size=rs, fused=False, **kw)
+    err = worst_of([got], [want], "oversize rows on the two-kernel path")
+    log(f"[phase 2] rows of {res.shape[1]} bytes (> {cuda_build.SMEM_LIMIT} of shared memory): refused by "
+        "decode_cbr_fused, decoded by the router on the two-kernel path, == plain")
+    return err
+
+
 # ---------------------------------------------------------------------------
 # phases 3-5
 # ---------------------------------------------------------------------------
@@ -425,7 +592,10 @@ FIXTURES = ("cbr_stereo_b3", "cbr_8ch_b8", "cbr_mono_b1_ragged", "vbr_stereo_b25
 
 
 def fixtures(here, rng):
-    from sea_codec_torch import EncoderSettings, sea_decode, sea_encode
+    import io
+
+    from sea_codec_torch import EncoderSettings, SeaDecoder, sea_decode, sea_encode
+    from sea_codec_torch.batch import decode_range
 
     for name in FIXTURES:
         fx = np.load(os.path.join(here, "tests", "fixtures", name + ".npz"))
@@ -440,6 +610,24 @@ def fixtures(here, rng):
         check(enc == fx["encoded"].tobytes(), f"fixture {name}: encoded bytes differ")
         dec = sea_decode(fx["encoded"].tobytes())
         check(np.array_equal(dec.samples, fx["decoded"]), f"fixture {name}: PCM differs")
+        # the sessions, a chunk at a time: the same bytes and the same PCM
+        c, fpc = int(fx["channels"]), int(fx["fpc"])
+        check(sea_encode(fx["input"], int(fx["sample_rate"]), c, st, engine="session") == enc,
+              f"fixture {name}: session bytes != batch bytes")
+        check(np.array_equal(sea_decode(enc, engine="session").samples, fx["decoded"]),
+              f"fixture {name}: session PCM differs")
+        pcm = fx["decoded"].reshape(-1, c)
+        frames = pcm.shape[0]
+        out = io.BytesIO()
+        sess = SeaDecoder(io.BytesIO(enc), out)
+        pos = sess.seek(min(fpc + fpc // 3, frames))
+        while sess.decode_frame():
+            pass
+        check(np.array_equal(np.frombuffer(out.getvalue(), "<i2"), pcm[pos:].reshape(-1)),
+              f"fixture {name}: PCM after seek differs")
+        for start, count in ((fpc // 2, fpc // 4), (fpc - 3, fpc + 7), (frames - 5, 50), (0, frames)):
+            check(np.array_equal(decode_range(enc, start, count), pcm[start : start + count].reshape(-1)),
+                  f"fixture {name}: decode_range({start}, {count}) differs")
     # a tail-only 255-channel file at the default chunk length: its tail
     # chunk decodes at its own length (padded to a full chunk it would
     # exceed the kernels' shared memory)
@@ -451,7 +639,9 @@ def fixtures(here, rng):
               f"tail-only 255 ch vbr={vbr}: card encode != plain")
         check(np.array_equal(sea_decode(enc).samples, sea_decode(enc, device="cpu").samples),
               f"tail-only 255 ch vbr={vbr}: card decode != plain")
-    log(f"[phase 3] fixtures {', '.join(FIXTURES)}: encode byte-equal, decode PCM-equal on the card; "
+    log(f"[phase 3] fixtures {', '.join(FIXTURES)}: encode byte-equal, decode PCM-equal on the card, "
+        "through the batch engine and through the sessions; SeaDecoder.seek and decode_range "
+        "(inside chunks, across them, into the tail) PCM-equal; "
         "tail-only 255-channel CBR and VBR files equal to plain")
 
 
@@ -476,21 +666,31 @@ def music_signal(frames, seed):
 
 
 def launch_counts():
-    from sea_codec_torch.ops import fused_decode, fused_decode_vbr, window_search
+    from sea_codec_torch.ops import dequant, fused_decode, fused_decode_vbr, lms_decode, window_search
 
     return {
         "fused_decode_cbr": fused_decode.launches,
         "fused_decode_vbr": fused_decode_vbr.launches,
         "window_search": window_search.launches,
         "window_search_ranks_only": window_search.ranks_only_launches,
+        "lms_decode": lms_decode.launches,
+        "dequant_cbr": dequant.cbr_launches,
+        "dequant_vbr": dequant.vbr_launches,
     }
 
 
 def reset_launch_counts():
-    from sea_codec_torch.ops import fused_decode, fused_decode_vbr, window_search
+    from sea_codec_torch.ops import dequant, fused_decode, fused_decode_vbr, lms_decode, window_search
 
     fused_decode.launches = fused_decode_vbr.launches = 0
     window_search.launches = window_search.ranks_only_launches = 0
+    lms_decode.launches = dequant.cbr_launches = dequant.vbr_launches = 0
+
+
+def path_launches(result, name):
+    """A kernel's launches on every main path: (their sum, by path)."""
+    by_path = {path: counts[name] for path, counts in result["launches"].items()}
+    return sum(by_path.values()), by_path
 
 
 MAIN_FRAMES, MAIN_CHANNELS, MAIN_RATE = 7_938_000, 2, 44100
@@ -576,6 +776,156 @@ def main_path(result, pcm, label, st, chunk_size, must_launch):
     return enc
 
 
+CORPUS_RATE = 44100
+# (channels, frames) of the corpus's distinct files and how often each is
+# repeated, per mode: lengths that share no ragged tail length, a 3-channel
+# group, and a tail-only 255-channel file (300 frames of a 5,120-frame
+# chunk), whose group decodes at the full-chunk width (CBR: ~490 KB a row,
+# past the fused kernel's shared memory)
+CORPUS_FILES = (
+    ((2, 2_901_337), 3), ((2, 2_757_911), 3), ((2, 3_014_020), 3), ((2, 2_840_561), 3),
+    ((3, 1_766_003), 2), ((3, 1_693_450), 2),
+    ((255, 300), 1),
+)
+
+
+def make_corpus(rng):
+    """The corpus for ``decode_corpus``: each distinct file encoded once on
+    the card, per mode, and listed as often as CORPUS_FILES says. Returns
+    (files, index of each file's distinct blob, distinct blobs with their
+    (mode, channels, frames))."""
+    import torch
+
+    from sea_codec_torch import EncoderSettings, sea_encode
+    from sea_codec_torch.utils.signal import varied_signal
+
+    t0 = time.perf_counter()
+    blobs, meta, files, which = [], [], [], []
+    for mode, st in (("cbr", EncoderSettings()), ("vbr", vbr_settings())):
+        for i, ((c, frames), repeat) in enumerate(CORPUS_FILES):
+            if c == 255:
+                pcm = rng.integers(-20000, 20000, frames * c).astype(np.int16)
+            else:
+                pcm = varied_signal(c, frames, seed=1000 + i)
+            blobs.append(sea_encode(pcm, CORPUS_RATE, c, st))
+            meta.append((mode, c, frames))
+            files += [blobs[-1]] * repeat
+            which += [len(blobs) - 1] * repeat
+    torch.cuda.synchronize()
+    samples = sum(meta[k][1] * meta[k][2] for k in which)
+    check(len(files) >= 32 and samples >= 100e6, f"corpus of {len(files)} files, {samples} samples is too small")
+    tails = {(meta[k][0], meta[k][1], meta[k][2] % 5120) for k in range(len(blobs))}
+    check(len(tails) == len(blobs), "two distinct corpus files share a ragged tail length")
+    log(f"[phase 4] corpus: {len(files)} files ({len(blobs)} distinct, encoded on the card in "
+        f"{time.perf_counter() - t0:.2f} s), {samples / 1e6:.3f} Msamples, {sum(map(len, files))} bytes")
+    return files, which, blobs, meta, samples
+
+
+def corpus_path(result, rng):
+    """``decode_corpus`` at a real size, with the default routing and with
+    the fused kernels off; every file's PCM equal to ``decode_sea``'s, and
+    that equal to the plain decode on the CPU for a sample of files."""
+    import torch
+
+    from sea_codec_torch import sea_decode
+    from sea_codec_torch.batch import decode_corpus
+
+    files, which, blobs, meta, samples = make_corpus(rng)
+    single = [sea_decode(b).samples for b in blobs]
+    for k in (0, 4, 6, 7, 11, 13):  # a stereo, a 3-channel and the 255-channel file per mode
+        check(np.array_equal(single[k], sea_decode(blobs[k], device="cpu").samples),
+              f"corpus file {meta[k]}: decode_sea on the card != plain CPU decode")
+    torch.cuda.synchronize()
+    times = {}
+    for label, env in (("corpus", None), ("corpus_two_kernel", "0")):
+        if env is None:
+            os.environ.pop("SEA_FUSED_PROLOG", None)
+        else:
+            os.environ["SEA_FUSED_PROLOG"] = env
+        try:
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = decode_corpus(files)
+            torch.cuda.synchronize()
+            times[label] = time.perf_counter() - t0
+            counts = launch_counts()
+        finally:
+            os.environ.pop("SEA_FUSED_PROLOG", None)
+        result["launches"][label] = counts
+        for fi, (out, k) in enumerate(zip(outs, which, strict=True)):
+            check(out is not None and out.channels == meta[k][1] and out.sample_rate == CORPUS_RATE,
+                  f"{label}: file {fi} header")
+            check(np.array_equal(out.samples, single[k]), f"{label}: file {fi} {meta[k]} != decode_sea")
+        for name in ("lms_decode", "dequant_cbr") + (("dequant_vbr",) if env == "0" else ()):
+            check(counts[name] > 0, f"{label} never launched {name}")
+        if env == "0":
+            check(counts["fused_decode_cbr"] == 0 and counts["fused_decode_vbr"] == 0,
+                  f"{label}: a fused kernel was launched with the fused kernels off: {counts}")
+        else:
+            check(counts["fused_decode_cbr"] > 0 and counts["fused_decode_vbr"] > 0,
+                  f"{label}: the default routing never took a fused kernel: {counts}")
+        log(f"[phase 4] decode_corpus, {'default routing' if env is None else 'SEA_FUSED_PROLOG=0 (two-kernel path)'}: "
+            f"{len(files)} files, {samples / 1e6:.3f} Msamples in {times[label]:.4f} s "
+            f"({samples / 1e6 / times[label]:.3f} Msamples/s), every file == decode_sea; "
+            f"launches {counts}; card {result['card']}")
+        result["main"][label] = {"decode_s": times[label], "msamples": samples / 1e6, "files": len(files)}
+        del outs
+
+
+SESSION_FRAMES = 100 * 5120 + 1777
+
+
+def session_path(result):
+    """One stereo file per mode through ``SeaEncoder`` then ``SeaDecoder``,
+    a chunk per call, on the card: bytes equal to the batch engine's, PCM
+    equal to the batch engine's decode."""
+    import io
+
+    import torch
+
+    from sea_codec_torch import EncoderSettings, SeaDecoder, SeaEncoder, sea_decode, sea_encode
+
+    c, frames = MAIN_CHANNELS, SESSION_FRAMES
+    pcm = music_signal(frames, seed=77)
+    chunks = -(-frames // 5120)
+    for label, st in (("session_cbr", EncoderSettings()), ("session_vbr", vbr_settings())):
+        want = sea_encode(pcm, MAIN_RATE, c, st)
+        want_pcm = sea_decode(want).samples
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wire = io.BytesIO()
+        enc = SeaEncoder(c, MAIN_RATE, frames, st, io.BytesIO(pcm.astype("<i2").tobytes()), wire)
+        while enc.encode_frame():
+            pass
+        enc.finalize()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = io.BytesIO()
+        dec = SeaDecoder(io.BytesIO(wire.getvalue()), out)
+        while dec.decode_frame():
+            pass
+        dec.finalize()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = launch_counts()
+        result["launches"][label] = counts
+        check(wire.getvalue() == want, f"{label}: session bytes != batch engine bytes")
+        check(np.array_equal(np.frombuffer(out.getvalue(), "<i2"), want_pcm), f"{label}: session PCM != batch decode")
+        per_chunk = 2 if st.vbr else 1
+        check(counts["window_search"] == per_chunk * chunks,
+              f"{label}: {counts['window_search']} search launches for {chunks} chunks")
+        decode_name = "fused_decode_vbr" if st.vbr else "fused_decode_cbr"
+        check(counts[decode_name] == chunks, f"{label}: {counts[decode_name]} decode launches for {chunks} chunks")
+        msamples = frames * c / 1e6
+        log(f"[phase 4] {label}: {chunks} chunks ({msamples} Msamples) a chunk per call: "
+            f"encode {t1 - t0:.4f} s ({msamples / (t1 - t0):.3f} Msamples/s), "
+            f"decode {t2 - t1:.4f} s ({msamples / (t2 - t1):.3f} Msamples/s), bytes == batch engine, "
+            f"PCM == batch decode; launches {counts}; card {result['card']}")
+        result["main"][label] = {"encode_s": t1 - t0, "decode_s": t2 - t1, "chunks": chunks}
+
+
 def decode_at_main_shape(enc, result):
     """The decode kernel on the main path's full chunks: equal to its plain
     version, and its time beside the plain version's."""
@@ -599,7 +949,8 @@ def decode_at_main_shape(enc, result):
         "name": "fused_decode_cbr", "route": "cuda",
         "source": "sea_codec_torch/csrc/fused_decode_cbr.cu",
         "replaces": "sea_codec_tpu/ops/pallas_fused_decode.py:130",
-        "launches": result["launches"]["cbr"]["fused_decode_cbr"],
+        "launches": path_launches(result, "fused_decode_cbr")[0],
+        "launches_by_path": path_launches(result, "fused_decode_cbr")[1],
         "ms": ms, "plain_ms": plain_ms, "shape": [n, f, c],
         "bytes": b.res_bytes.nbytes + b.sf.nbytes + 2 * b.hist.size * 4 + n * f * c * 2,
         "ops": tuple(n * f * c * k for k in DECODE_OPS_PER_SAMPLE),
@@ -667,8 +1018,8 @@ def search_at_main_shape(pcm, enc, result):
         "name": "window_search", "route": "cuda",
         "source": "sea_codec_torch/csrc/window_search.cu",
         "replaces": "sea_codec_tpu/ops/pallas_encode.py:491",
-        "launches": sum(result["launches"][p]["window_search"] for p in ("cbr", "vbr")),
-        "launches_by_path": {p: result["launches"][p]["window_search"] for p in ("cbr", "vbr")},
+        "launches": path_launches(result, "window_search")[0],
+        "launches_by_path": path_launches(result, "window_search")[1],
         "ms": ms, "plain_ms": plain_ms, "ms_plain_shape": prefix_ms,
         "plain_shape": [2 * f, c], "shape": [nc * f, c],
         "bytes": x.numel() * 2 + x.numel() + nw * c * (1 + 8) + 2 * nc * c * 16,
@@ -701,7 +1052,8 @@ def vbr_decode_at_main_shape(enc, result):
         "name": "fused_decode_vbr", "route": "cuda",
         "source": "sea_codec_torch/csrc/fused_decode_vbr.cu",
         "replaces": "sea_codec_tpu/ops/pallas_fused_decode.py:419",
-        "launches": result["launches"]["vbr"]["fused_decode_vbr"],
+        "launches": path_launches(result, "fused_decode_vbr")[0],
+        "launches_by_path": path_launches(result, "fused_decode_vbr")[1],
         "ms": ms, "plain_ms": plain_ms, "shape": [n, f, c],
         "bytes": b.res_bytes.nbytes + b.sf.nbytes + b.rs.nbytes + 2 * b.hist.size * 4 + n * f * c * 2,
         # per sample, plus the window's C sizes read for wsum and prefix
@@ -815,6 +1167,82 @@ def vbr_search_at_main_shape(pcm, enc, result, clock_mhz):
     }
 
 
+def two_kernel_at_main_shape(enc, enc_vbr, result):
+    """The two-kernel decode's kernels on the main paths' full chunks
+    [1550, 5120, 2]: each equal to its plain version, with its time; and the
+    path's total (dequant, then the recurrence) beside the fused kernel's
+    time on the same chunks, taken in turns (fused, two-kernel, two-kernel,
+    fused)."""
+    import torch
+
+    from sea_codec_torch.batch import parse_full_chunks, split_chunks
+    from sea_codec_torch.ops import dequant
+    from sea_codec_torch.ops.device_decode import decode_chunks_packed
+    from sea_codec_torch.ops.lms_decode import lms_decode, lms_decode_plain
+
+    out = []
+    for mode, blob in (("cbr", enc), ("vbr", enc_vbr)):
+        header, rect, _tail = split_chunks(blob)
+        b = parse_full_chunks(rect, header)
+        f = header.frames_per_chunk
+        n, w, c = b.sf.shape
+        res, sf, rs, hist, wts = (torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in b.arrays)
+        kw = dict(sfb=b.scale_factor_bits, sff=b.scale_factor_frames, frames=f)
+        if mode == "cbr":
+            kernel = lambda: dequant.unpack_dequant_cbr(res, sf, rs=b.residual_size, **kw)
+            plain = lambda: dequant.unpack_dequant_cbr_plain(res, sf, rs=b.residual_size, **kw)
+            nbytes, ops = b.res_bytes.nbytes + b.sf.nbytes, DEQUANT_OPS_PER_SAMPLE
+        else:
+            kernel = lambda: dequant.unpack_dequant_vbr(res, sf, rs, **kw)
+            plain = lambda: dequant.unpack_dequant_vbr_plain(res, sf, rs, **kw)
+            # the size table, and the wrapper's offsets (two per window, one per size)
+            nbytes = b.res_bytes.nbytes + b.sf.nbytes + b.rs.nbytes + 4 * (2 * n * w + n * w * c)
+            ops = VBR_DEQUANT_OPS_PER_SAMPLE
+        ms, dq = cuda_ms(kernel, reps=20)
+        plain_ms, want = cuda_ms(plain, reps=1)
+        err = worst_of([dq], [want], f"{mode} dequant at the main-path shape")
+        log(f"[phase 5] {mode} dequant kernel == plain at {[n, f, c]}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms")
+        out.append((err, {
+            "name": f"dequant_{mode}", "route": "cuda",
+            "source": f"sea_codec_torch/csrc/dequant_{mode}.cu",
+            "replaces": "sea_codec_tpu/ops/pallas_dequant.py:" + ("108" if mode == "cbr" else "322"),
+            "launches": path_launches(result, f"dequant_{mode}")[0],
+            "launches_by_path": path_launches(result, f"dequant_{mode}")[1],
+            "ms": ms, "plain_ms": plain_ms, "shape": [n, f, c],
+            "bytes": nbytes + n * f * c * 2,
+            "ops": tuple(n * f * c * k for k in ops),
+            "chain_cycles": 0,  # no sample depends on another
+        }))
+        if mode == "cbr":
+            lms_ms, pcm = cuda_ms(lambda: lms_decode(dq, hist, wts), reps=20)
+            lms_plain_ms, want_pcm = cuda_ms(lambda: lms_decode_plain(dq, hist, wts), reps=1)
+            err = worst_of([pcm], [want_pcm], "LMS recurrence at the main-path shape")
+            log(f"[phase 5] LMS recurrence kernel == plain at {[n, f, c]}: kernel {lms_ms:.4f} ms, "
+                f"plain {lms_plain_ms:.1f} ms")
+            out.append((err, {
+                "name": "lms_decode", "route": "cuda",
+                "source": "sea_codec_torch/csrc/lms_decode.cu",
+                "replaces": "sea_codec_tpu/ops/pallas_decode.py:92",
+                "launches": path_launches(result, "lms_decode")[0],
+                "launches_by_path": path_launches(result, "lms_decode")[1],
+                "ms": lms_ms, "plain_ms": lms_plain_ms, "shape": [n, f, c],
+                "bytes": 2 * n * f * c * 2 + 2 * b.hist.size * 4,
+                "ops": tuple(n * f * c * k for k in LMS_OPS_PER_SAMPLE),
+                "chain_cycles": f * chain_cycles(DECODE_FRAME_CHAIN),
+            }))
+        rkw = dict(kw, residual_size=b.residual_size)
+        route = lambda fused: decode_chunks_packed(res, sf, rs, hist, wts, fused=fused, **rkw)
+        turns = [cuda_ms(lambda: route(fused), reps=20) for fused in (True, False, False, True)]
+        worst_of([turns[1][1]], [turns[0][1]], f"{mode}: two-kernel path != fused kernel")
+        fused_ms = (turns[0][0] + turns[3][0]) / 2
+        two_ms = (turns[1][0] + turns[2][0]) / 2
+        result["main"][f"two_kernel_vs_fused_{mode}"] = {"fused_ms": fused_ms, "two_kernel_ms": two_ms}
+        log(f"[phase 5] {mode} decode of {[n, f, c]} through the router, in turns: fused kernel "
+            f"{turns[0][0]:.4f} / {turns[3][0]:.4f} ms, two-kernel path (dequant + recurrence, wrapper ops "
+            f"included) {turns[1][0]:.4f} / {turns[2][0]:.4f} ms; equal PCM; card {result['card']}")
+    return out
+
+
 def run(here):
     import torch
 
@@ -833,7 +1261,13 @@ def run(here):
         "fused_decode_cbr": max(decode_sweep(rng), dequant_exhaustive()),
         "fused_decode_vbr": max(vbr_decode_sweep(rng), vbr_dequant_exhaustive()),
         "window_search": max(search_sweep(rng), search_sweep_vbr(rng)),
+        "lms_decode": lms_sweep(rng),
     }
+    errs["dequant_cbr"], errs["dequant_vbr"] = dequant_sweeps(rng)
+    dequant_kernels_exhaustive()
+    over = oversize_rows(rng)
+    errs["dequant_cbr"] = max(errs["dequant_cbr"], over)
+    errs["lms_decode"] = max(errs["lms_decode"], over)
     fixtures(here, rng)
     pcm = music_signal(MAIN_FRAMES, seed=2024)
     c = MAIN_CHANNELS
@@ -842,10 +1276,13 @@ def run(here):
                     ("fused_decode_cbr", "window_search"))
     enc_vbr = main_path(result, pcm, "vbr", vbr_settings(), vbr_chunk_size(vbr_settings(), c),
                         ("fused_decode_vbr", "window_search_full", "window_search_ranks_only"))
+    corpus_path(result, rng)
+    session_path(result)
     clock_mhz = float(smi("clocks.max.sm", ",nounits"))
     kernels = []
-    phase5 = (decode_at_main_shape(enc, result), vbr_decode_at_main_shape(enc_vbr, result),
-              search_at_main_shape(pcm, enc, result))
+    phase5 = [decode_at_main_shape(enc, result), vbr_decode_at_main_shape(enc_vbr, result),
+              *two_kernel_at_main_shape(enc, enc_vbr, result),
+              search_at_main_shape(pcm, enc, result)]
     for err, k in phase5:
         k["max_abs_err"] = max(errs[k["name"]], err)
         bounds(k, clock_mhz)

@@ -6,21 +6,28 @@ same ``.sea`` bytes and the same decoded PCM, bit for bit. This package
 imports neither JAX nor anything of ``sea_codec_tpu``.
 
 - ``ops/``    -- tables, bit packing, the LMS predictor, the decode and
-                 encode pipelines, and the three CUDA kernels with their
+                 encode pipelines, and the six CUDA kernels with their
                  plain PyTorch versions (``fused_decode``,
-                 ``fused_decode_vbr``, ``window_search``; sources in
-                 ``csrc/``, built by ``ops/cuda_build.py``).
-- ``models/`` -- the CBR and VBR tail-chunk encoders and the chunk decoder.
+                 ``fused_decode_vbr``, ``window_search``, ``lms_decode``,
+                 and the two of ``dequant``; sources in ``csrc/``, built by
+                 ``ops/cuda_build.py``). ``device_decode.decode_chunks_packed``
+                 routes packed chunks to the fused kernels or, for rows too
+                 long for them, to the two-kernel path.
+- ``models/`` -- the CBR and VBR chunk encoders and the chunk decoder.
 - ``container.py`` -- the ``.sea`` file/chunk framing (host-side bytes).
-- ``batch.py``/``api.py`` -- whole-file encode/decode, one-shot API.
-- ``convert.py`` -- carries encoder/LMS state and settings over from the
-                 JAX package's numpy arrays.
+- ``encoder.py``/``decoder.py`` -- settings and the streaming sessions
+                 (``SeaEncoder``, ``SeaDecoder``), a chunk per call.
+- ``batch.py``/``api.py`` -- whole-file encode/decode, ``decode_range``,
+                 ``decode_corpus``, the one-shot API with both engines.
+- ``convert.py`` -- carries state, settings, parsed batches and dq streams
+                 over from the JAX package's numpy arrays.
 
 Entry points run on the CUDA card unless ``device`` says otherwise.
 """
 
 from .api import SeaDecodeInfo, sea_decode, sea_encode
-from .encoder import EncoderSettings
+from .decoder import SeaDecoder
+from .encoder import EncoderSettings, SeaEncoder
 from .utils.errors import SeaError
 from .utils.metadata import format_metadata, lookup_metadata, parse_metadata
 
@@ -31,6 +38,8 @@ __all__ = [
     "sea_decode",
     "SeaDecodeInfo",
     "EncoderSettings",
+    "SeaEncoder",
+    "SeaDecoder",
     "SeaError",
     "format_metadata",
     "parse_metadata",

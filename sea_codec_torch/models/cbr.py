@@ -29,6 +29,7 @@ class CbrEncoderModel:
         self.scale_factor_bits = scale_factor_bits
         self.scale_factor_frames = scale_factor_frames
         self.residual_size = int(np.floor(residual_bits))
+        self.chunk_residual_size = self.residual_size  # the chunk header's field
         self.state = state
 
     @property

@@ -1,14 +1,14 @@
 """Chunk decoder model for a single (ragged tail) chunk
 (reference ``src/codec/decoder.rs``).
 
-Full chunks decode in batches in ``batch.decode_sea``; the ragged tail chunk
-goes through the same fused kernels at its own length: its residual section
-as packed on the wire already lies where the full-chunk addressing expects
-it (every window before the last is complete; the last window holds the
-leading frames), and the kernels take a partial last window. The JAX package pads
-the tail to a full chunk to reuse one compiled program; here that padding
-would only add staged bytes, and at 255 channels it can push a tail past
-the kernels' shared memory.
+Full chunks decode in batches in ``batch.decode_sea``; a single chunk (the
+ragged tail, or any chunk of a session) goes through the same router
+(``ops.device_decode.decode_chunks_packed``) at its own length: its residual
+section as packed on the wire already lies where the full-chunk addressing
+expects it (every window before the last is complete; the last window holds
+the leading frames), and the kernels take a partial last window. The JAX
+package pads the tail to a full chunk to reuse one compiled program; here
+nothing is compiled per shape, and the padding would only add work.
 """
 
 from __future__ import annotations
@@ -17,8 +17,7 @@ import numpy as np
 import torch
 
 from ..container import CHUNK_TYPE_VBR, SeaChunk
-from ..ops.fused_decode import decode_cbr_fused
-from ..ops.fused_decode_vbr import decode_vbr_fused
+from ..ops.device_decode import decode_chunks_packed
 from ..utils.errors import SeaInvalidFrame
 
 
@@ -44,10 +43,10 @@ class DecoderModel:
         hist = up(chunk.lms_history.reshape(1, c, 4).astype(np.int32))
         wts = up(chunk.lms_weights.reshape(1, c, 4).astype(np.int32))
         packed = up(chunk.residual_bytes[None])  # as on the wire
-        kw = dict(sfb=self.scale_factor_bits, sff=sff, frames=f)
-        if chunk.chunk_type == CHUNK_TYPE_VBR:
-            rs = up(chunk.vbr_residual_sizes.reshape(1, w, c))
-            out = decode_vbr_fused(packed, sf, rs, hist, wts, **kw)
-        else:
-            out = decode_cbr_fused(packed, sf, hist, wts, rs=chunk.residual_size, **kw)
+        vbr = chunk.chunk_type == CHUNK_TYPE_VBR
+        rs = up(chunk.vbr_residual_sizes.reshape(1, w, c)) if vbr else None
+        out = decode_chunks_packed(
+            packed, sf, rs, hist, wts, sfb=self.scale_factor_bits, sff=sff, frames=f,
+            residual_size=0 if vbr else chunk.residual_size,
+        )
         return out.cpu().numpy().reshape(f * c)

@@ -121,6 +121,7 @@ class VbrEncoderModel:
         self.vbr_target_bitrate = normalized_vbr_bitrate(
             residual_bits, frames_per_chunk, scale_factor_bits, scale_factor_frames
         )
+        self.chunk_residual_size = chunk_residual_size(residual_bits, self.vbr_target_bitrate)
         self.state = state
 
     @property

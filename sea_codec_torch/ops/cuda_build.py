@@ -18,7 +18,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sea_codec_torch"
-KERNEL_SOURCES = ("fused_decode_cbr", "fused_decode_vbr", "window_search")
+KERNEL_SOURCES = (
+    "fused_decode_cbr", "fused_decode_vbr", "window_search",
+    "lms_decode", "dequant_cbr", "dequant_vbr",
+)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -7,18 +7,26 @@ chunks x channels independent. Per-sample semantics mirror the reference
 decoder hot loop (``src/codec/decoder.rs:20-86``): predict -> dequantize ->
 clamp -> LMS update.
 
-The functions here are the plain PyTorch form of that pipeline (unpack,
-closed-form dequant, recurrence), for constant (CBR) and per-window (VBR)
-residual sizes; the decode entries for packed chunks, which launch the
-fused Hopper kernels on CUDA tensors, are ``ops.fused_decode.decode_cbr_fused``
-and ``ops.fused_decode_vbr.decode_vbr_fused``.
+The first half of this module is the plain PyTorch form of that pipeline
+(unpack, closed-form dequant, recurrence), for constant (CBR) and per-window
+(VBR) residual sizes. The second half holds the two decode entries, named as
+in the JAX package: ``decode_chunks`` on unpacked codes, and
+``decode_chunks_packed``, the router from packed chunk rows to the kernels.
+On a CUDA tensor the router takes the fused kernel
+(``ops.fused_decode.decode_cbr_fused``, ``ops.fused_decode_vbr.decode_vbr_fused``)
+when the row fits its shared memory, else the two-kernel path (a dequant
+prolog of ``ops.dequant``, then ``ops.lms_decode``), which stages nothing per
+chunk and takes a row of any length.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
-from . import lms, tables
+from . import tables
+from .lms_decode import lms_decode, lms_decode_plain
 
 
 def _dequant_window_constants(sf_w: torch.Tensor, sfb: int, rs):
@@ -137,15 +145,67 @@ def decode_chunks_fn(
     residual_size,  # int (CBR) or uint8[N, W, C] sizes per window (VBR)
 ) -> torch.Tensor:
     """Plain decode of unpacked codes -> int16[N, F, C]: dequant for all
-    samples at once, then the recurrence, vectorised over streams and
-    looping over frames."""
-    dq = dequant_codes(codes, sf_codes, sfb, scale_factor_frames, residual_size).to(torch.int64)
-    hist = hist0.to(torch.int64)
-    wts = wts0.to(torch.int64)
-    out = torch.empty(codes.shape, dtype=torch.int16, device=codes.device)
-    for t in range(codes.shape[1]):
-        dq_t = dq[:, t]
-        recon = lms.clamp_i16(lms.predict(hist, wts) + dq_t)
-        out[:, t] = recon.to(torch.int16)
-        hist, wts = lms.update(hist, wts, recon, dq_t)
-    return out
+    samples at once, then the recurrence (``lms_decode.lms_decode_plain``)."""
+    dq = dequant_codes(codes, sf_codes, sfb, scale_factor_frames, residual_size)
+    return lms_decode_plain(dq.permute(1, 0, 2), hist0, wts0)
+
+
+def decode_chunks(
+    codes: torch.Tensor,  # uint8[N, F, C] quantized residual codes
+    sf_codes: torch.Tensor,  # uint8[N, W, C]
+    rs,  # uint8[N, W, C] sizes per window; unread when static_rs > 0
+    hist0: torch.Tensor,  # int32[N, C, 4]
+    wts0: torch.Tensor,  # int32[N, C, 4]
+    *,
+    sfb: int,
+    sff: int,
+    static_rs: int = 0,  # >0: every window uses this residual size (CBR)
+) -> torch.Tensor:
+    """Decode a batch of chunks from unpacked codes -> int16[N, F, C]. The
+    dequant is plain tensor code (as it is XLA and no kernel in the JAX
+    package); the recurrence is ``lms_decode``: its kernel on a CUDA tensor,
+    its plain version on a CPU tensor."""
+    dq = dequant_codes(codes, sf_codes, sfb, sff, static_rs if static_rs else rs)
+    return lms_decode(dq.permute(1, 0, 2).contiguous(), hist0, wts0)
+
+
+def decode_chunks_packed(
+    res_bytes: torch.Tensor,  # uint8[N, B] packed residual section
+    sf_codes: torch.Tensor,  # uint8[N, W, C]
+    rs,  # uint8[N, W, C] sizes per window; unread when residual_size > 0
+    hist0: torch.Tensor,  # int32[N, C, 4]
+    wts0: torch.Tensor,  # int32[N, C, 4]
+    *,
+    sfb: int,
+    sff: int,
+    frames: int,
+    residual_size: int,  # >0: CBR at this constant width; 0: VBR, widths from rs
+    fused: bool | None = None,
+) -> torch.Tensor:
+    """Decode packed chunk rows -> int16[N, frames, C].
+
+    With ``fused`` true the fused kernel decodes the batch when a row fits
+    its shared memory (``fused_decode.fused_cbr_supported``,
+    ``fused_decode_vbr.fused_vbr_supported``); otherwise, and always with
+    ``fused`` false, the two-kernel path does. ``fused=None`` reads the
+    ``SEA_FUSED_PROLOG`` environment variable at each call (``0`` turns the
+    fused kernels off), as the JAX package does. Every route runs its
+    kernels on CUDA tensors and their plain versions on CPU tensors."""
+    # imported here: these modules build on this module's plain functions
+    from . import dequant
+    from .fused_decode import decode_cbr_fused, fused_cbr_supported
+    from .fused_decode_vbr import decode_vbr_fused, fused_vbr_supported
+
+    if fused is None:
+        fused = os.environ.get("SEA_FUSED_PROLOG") != "0"
+    _n, w, c = sf_codes.shape
+    kw = dict(sfb=sfb, sff=sff, frames=frames)
+    if residual_size:
+        if fused and fused_cbr_supported(sfb, residual_size, frames, c):
+            return decode_cbr_fused(res_bytes, sf_codes, hist0, wts0, rs=residual_size, **kw)
+        dq = dequant.unpack_dequant_cbr(res_bytes, sf_codes, rs=residual_size, **kw)
+    else:
+        if fused and fused_vbr_supported(sfb, w, c, res_bytes.shape[1]):
+            return decode_vbr_fused(res_bytes, sf_codes, rs, hist0, wts0, **kw)
+        dq = dequant.unpack_dequant_vbr(res_bytes, sf_codes, rs, **kw)
+    return lms_decode(dq, hist0, wts0)

@@ -26,6 +26,12 @@ def decode_cbr_plain(res_bytes, sf_codes, hist0, wts0, *, sfb, rs, sff, frames):
     return decode_chunks_fn(codes, sf_codes, hist0, wts0, sfb, sff, rs)
 
 
+def fused_cbr_supported(sfb: int, rs: int, frames: int, c: int) -> bool:
+    """Whether the kernel can take chunks of this geometry: a block stages
+    the scale-factor values and one whole packed row in shared memory."""
+    return 4 * (1 << sfb) + -(-(frames * c * rs) // 8) + 2 <= cuda_build.SMEM_LIMIT
+
+
 def _check_inputs(res_bytes, sf_codes, hist0, wts0, sfb, rs, sff, frames):
     n, w, c = sf_codes.shape
     if not (1 <= sfb <= 8 and 1 <= rs <= 8 and sff >= 1 and 1 <= c <= 255):
@@ -47,6 +53,11 @@ def _check_inputs(res_bytes, sf_codes, hist0, wts0, sfb, rs, sff, frames):
             raise ValueError(f"{name} is on {t.device}, sf_codes on {sf_codes.device}")
     if hist0.shape != (n, c, 4) or wts0.shape != (n, c, 4):
         raise ValueError("hist0/wts0 must be [N, C, 4]")
+    if not fused_cbr_supported(sfb, rs, frames, c):
+        raise ValueError(
+            f"chunk of {need} residual bytes exceeds shared memory; "
+            "device_decode.decode_chunks_packed routes such chunks to the two-kernel path"
+        )
     return n, w, c, need
 
 

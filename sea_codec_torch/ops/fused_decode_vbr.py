@@ -26,6 +26,13 @@ def decode_vbr_plain(res_bytes, sf_codes, rs, hist0, wts0, *, sfb, sff, frames):
     return decode_chunks_fn(codes, sf_codes, hist0, wts0, sfb, sff, rs)
 
 
+def fused_vbr_supported(sfb: int, w: int, c: int, res_len: int) -> bool:
+    """Whether the kernel can take chunks of this geometry: a block stages
+    every size's tables, the chunk's size table and one whole packed row in
+    shared memory."""
+    return 4 * (9 * (1 << sfb) + 36) + w * c + res_len + 2 <= cuda_build.SMEM_LIMIT
+
+
 def decode_vbr_fused(res_bytes, sf_codes, rs, hist0, wts0, *, sfb, sff, frames):
     """Decode N VBR chunks of ``frames`` frames each -> int16[N, frames, C].
 
@@ -52,8 +59,11 @@ def decode_vbr_fused(res_bytes, sf_codes, rs, hist0, wts0, *, sfb, sff, frames):
             raise ValueError(f"{name} must be {dtype}{list(shape)} on {device}")
     s = 1 << sfb
     b = res_bytes.shape[1]
-    if 4 * (9 * s + 36) + w * c + b + 2 > cuda_build.SMEM_LIMIT:
-        raise ValueError(f"chunk of {b} residual bytes and {w}x{c} sizes exceeds shared memory")
+    if not fused_vbr_supported(sfb, w, c, b):
+        raise ValueError(
+            f"chunk of {b} residual bytes and {w}x{c} sizes exceeds shared memory; "
+            "device_decode.decode_chunks_packed routes such chunks to the two-kernel path"
+        )
     if device.type == "cpu":
         return decode_vbr_plain(
             res_bytes, sf_codes, rs, hist0, wts0, sfb=sfb, sff=sff, frames=frames

@@ -1,7 +1,8 @@
 """One-shot round trip of the PyTorch port (``device="cpu"``: the plain
 versions of the kernels) against the JAX package and the committed
 fixtures, CBR and VBR: the same ``.sea`` bytes and the same decoded PCM,
-bit for bit. The session engine is outside the port so far and raises."""
+bit for bit. The session engine gives the batch engine's bytes and PCM; an
+unknown engine raises."""
 
 from __future__ import annotations
 
@@ -74,11 +75,22 @@ def test_seeded_round_trip_matches_jax(channels, frames, fpc, sff, sfb, rb):
 
 
 def test_vbr_and_session_raise():
-    """VBR encodes and decodes now; only the session engine raises."""
+    """VBR and the session engine encode and decode; only an unknown engine
+    raises, and the session decoder raises on a stream with no header."""
+    from sea_codec_torch.utils.errors import SeaError
+
     sig = varied_signal(1, 200, seed=1)
-    encoded = sea_encode(sig, 8000, 1, EncoderSettings(vbr=True, residual_bits=2.5), device="cpu")
+    st = EncoderSettings(vbr=True, residual_bits=2.5)
+    encoded = sea_encode(sig, 8000, 1, st, device="cpu")
     assert sea_decode(encoded, device="cpu").samples.shape == sig.shape
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sea_encode(sig, 8000, 1, engine="session", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert sea_encode(sig, 8000, 1, st, engine="session", device="cpu") == encoded
+    np.testing.assert_array_equal(
+        sea_decode(encoded, engine="session", device="cpu").samples,
+        sea_decode(encoded, device="cpu").samples,
+    )
+    with pytest.raises(ValueError, match="engine must be"):
+        sea_encode(sig, 8000, 1, engine="stream", device="cpu")
+    with pytest.raises(ValueError, match="engine must be"):
+        sea_decode(encoded, engine="stream", device="cpu")
+    with pytest.raises(SeaError):
         sea_decode(b"", engine="session", device="cpu")
