@@ -12,15 +12,17 @@ Phases, in order; any failure exits non-zero:
    the fused VBR decode over random per-window sizes 1..8 x sfb {1,4,8} x
    C {1,2,8,255} with partial last windows; for both, an exhaustive dequant
    check against the table build; the window search over sfb 1..8 x rs
-   1..8 on clipping stress signals, with and without a ragged tail, and in
-   its VBR forms (per-window sizes; ranks-only, also against the full form).
+   1..8 on clipping stress signals, at sff 20 (the unrolled loop) and 16,
+   with and without a ragged tail, from entry weights on both sides of the
+   weights penalty's bound and at the int32 ends, and in its VBR forms
+   (per-window sizes; ranks-only, also against the full form).
    The kernels of the two-kernel decode: the LMS recurrence on random dq
    streams (1 to 80,000 streams, odd frame counts, extreme weights); the
    CBR dequant over rs 1..8 x sfb {1,4,8} x C {1,2,3,8,255} and the VBR
    dequant over random size tables, both with full and partial last
    windows and both against the table build for every (sfb, rs, sf, code);
-   and a batch whose rows exceed the fused kernel's shared memory, which
-   the fused wrapper refuses and the router decodes on the two-kernel path.
+   and a batch whose rows exceed a block's shared memory, which the fused
+   CBR kernel streams tile by tile and the two-kernel path decodes as well.
 3. The committed CBR and VBR fixtures: ``sea_encode`` gives their bytes and
    ``sea_decode`` their PCM, through the batch engine and through the
    sessions (``engine="session"``); ``SeaDecoder.seek`` and ``decode_range``
@@ -34,8 +36,9 @@ Phases, in order; any failure exits non-zero:
    with VBR at 2.5 bits. (b) ``decode_corpus`` on a corpus of 34 files,
    ~180 Msamples: CBR defaults and VBR at 2.5 bits, stereo and 3-channel
    files of differing ragged lengths and a tail-only 255-channel file per
-   mode, once with the default routing and once with the fused kernels off
-   (``SEA_FUSED_PROLOG=0``: every batch on the two-kernel path); every
+   mode, once with the default routing (every CBR group on the fused
+   kernel) and once with the fused kernels off (``SEA_FUSED_PROLOG=0``:
+   every batch on the two-kernel path); every
    file's PCM equal to ``decode_sea``'s. (c) One file per mode through
    ``SeaEncoder``/``SeaDecoder`` chunk by chunk, bytes equal to the batch
    engine's.
@@ -73,9 +76,19 @@ H100_F32_OPS_PER_S = 67e12  # float32 outside the tensor cores, data sheet
 H100_ISSUE_PER_S = H100_F32_OPS_PER_S / 2
 H100_INT32_OPS_PER_S = H100_F32_OPS_PER_S / 4
 # (int32, f32) instructions per sample (decode) and per candidate-sample
-# (search), counted from the kernels' inner loops in sea_codec_torch/csrc
-DECODE_OPS_PER_SAMPLE = (34, 5)
-SEARCH_OPS_PER_STEP = (54, 5)
+# (search), counted from the kernels' inner loops in sea_codec_torch/csrc.
+# Fused CBR decode: the recurrence thread's frame step (23: the dot, shift,
+# add, clamp, the weight step, a shared-memory load and store) plus a
+# producer's share per sample (21: an eighth of the group's byte loads,
+# assembly and divisions, the code's shift and mask, the scale factor's two
+# loads with their address, the window bookkeeping, the copy-out) and its f32
+# dequant (I2F, 2 FMUL, 2 FADD, floor, F2I).
+DECODE_OPS_PER_SAMPLE = (44, 7)
+# Search, the unrolled table step: the carried dot (8 multiply-adds), sea_div
+# (2), the clamp and its limits (6), the lookup (2), the reconstruction (3),
+# the rank (3), the weight step (4), the sign (2), the code store and the
+# sample load (2); f32: the penalty guard (4 I2F, FMUL, 3 FFMA, FMNMX).
+SEARCH_OPS_PER_STEP = (32, 9)
 # the VBR decode's frame loop: the CBR count less the offset multiply, plus
 # the byte-index clamp and the cursor step; and per window, per size read,
 # a load, an add and a select-add for wsum and the prefix
@@ -100,14 +113,20 @@ ALU_CYCLES, SMEM_CYCLES = 4, 23
 # other three products) -> SHF >>13 -> IADD +dq -> 2 IMNMX (clamp) -> recon(t);
 # the code fetch and the dequant do not depend on the chain
 DECODE_FRAME_CHAIN = (5, 0)
-# search, one sample step of a candidate: the dot's last IMAD, SHF >>13, IADD
-# (residual), sea_div (IMAD.WIDE, 2 for the 64-bit add, SHF, 3 for the sign
-# fix), 2 (clamp), the quant-table load, SHF (k), I2F, FMUL, FADD, 2 selects
-# (curve ends), FMUL, FADD, F2I.FLOOR, 2 (sign), IADD (pred + dq), 2 (clamp)
-SEARCH_STEP_CHAIN = (26, 1)
-# search, once per window: 5 shuffle levels of (a shuffle, 3 compare-selects),
-# then the winner through shared memory (3 barriers, 2 loads, 3 selects)
-SEARCH_WINDOW_CHAIN = (5 * 3 + 3, 5 + 3 + 2)
+# search, one sample step of a candidate (the unrolled table step): the
+# carried dot's last IMAD, SHF >>13, the residual times 8 (one IMAD), sea_div
+# (IMAD.HI), 2 (clamp), IMAD (the table address), the table load, pred +
+# (word >> 8) in one LEA, 2 (clamp)
+SEARCH_STEP_CHAIN = (10, 1)
+# search, once per window at S <= 32: three warp minima (redux) with a
+# compare-select pair between them, the winner's index (2), one shuffle (the
+# eight state words travel side by side)
+SEARCH_WINDOW_CHAIN = (6, 3 + 1)
+# the same two as the kernel had them before its redesign (its f32 dequant
+# on the chain, five shuffle levels and three block barriers a window): the
+# yardstick its earlier times were held against
+SEARCH_STEP_CHAIN_BEFORE = (26, 1)
+SEARCH_WINDOW_CHAIN_BEFORE = (5 * 3 + 3, 5 + 3 + 2)
 
 
 def chain_cycles(chain):
@@ -123,6 +142,11 @@ def bounds(k, clock_mhz):
     k["bound_ms"] = max(t_bytes, t_ops)
     k["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     k["chain_ms"] = k.pop("chain_cycles") / (clock_mhz * 1e6) * 1e3
+    if "chain_cycles_before" in k:
+        k["chain_ms_before"] = k.pop("chain_cycles_before") / (clock_mhz * 1e6) * 1e3
+    # the least time the kernel could take: no stream's dependent steps can
+    # be spread over more threads, whatever the roofline allows
+    k["least_ms"] = max(k["bound_ms"], k["chain_ms"])
     k["clock_mhz"] = clock_mhz
     k["library_ms"] = None
 
@@ -358,21 +382,53 @@ def tail_windows(pcm_tail, sff):
     return torch.from_numpy(xt), torch.from_numpy(nv)
 
 
+# The weights penalty of the search's rank is 0 below sum(w^2) = 0x900 << 18
+# = 24576^2: entry weights just below the kernel's guard, between the guard
+# and the bound, at the bound (penalty 1), above it, and at the int32 ends.
+PENALTY_EDGE_WEIGHTS = (
+    (0, 0, -8, 24574), (0, 0, 0, 24575), (0, 0, 0, -24576), (12288, 12288, -12288, 12288),
+    (20000, -20000, 3, 1), (2**31 - 1, -(2**31 - 1), 2**31 - 1, -(2**31)),
+)
+
+
+def penalty_edge_weights(c, shift=0):
+    """int32[c, 4] entry weights cycling through PENALTY_EDGE_WEIGHTS."""
+    import torch
+
+    rows = [PENALTY_EDGE_WEIGHTS[(ch + shift) % len(PENALTY_EDGE_WEIGHTS)] for ch in range(c)]
+    return torch.tensor(rows, dtype=torch.int64).to(torch.int32)
+
+
 def search_sweep(rng):
     import torch
 
     from sea_codec_torch.ops import lms
-    from sea_codec_torch.ops.window_search import window_search, window_search_plain
+    from sea_codec_torch.ops.window_search import _table_rows, window_search, window_search_plain
+
+    def fits_smem(s, sff, ranks_only, rs):
+        try:
+            _table_rows(s, sff, ranks_only, rs)
+        except ValueError:
+            return False
+        return True
 
     # (sfb, rs, channels, frames per chunk): the full sfb x rs grid on small
-    # channel counts, then 255 channels at sfb 8 on a shorter chunk
+    # channel counts, then 255 channels at sfb 8 on a shorter chunk; two of
+    # three configs at sff 20 (the unrolled loop where the lookup table fits
+    # shared memory), the third at sff 16 (the run-time loop)
     grid = [(sfb, rs, (1, 2, 3, 8)[i % 4], 1024)
             for i, (sfb, rs) in enumerate((b, r) for b in range(1, 9) for r in range(1, 9))]
-    grid += [(8, 3, 255, 64), (8, 8, 255, 64)]
+    grid += [(8, 3, 255, 64), (8, 8, 255, 64), (4, 3, 255, 80)]
+    # windows longer than the sample registers a thread keeps ahead (sff 300),
+    # and the longest that fits a block's shared memory at sfb 8
+    longest = max(sff for sff in range(1, 2000) if fits_smem(256, sff, False, 3))
+    long_windows = {len(grid): 300, len(grid) + 1: longest}
+    grid += [(2, 4, 2, 600), (8, 3, 1, longest)]
     worst = 0
-    sff = 16
     for cases, (sfb, rs, c, fpc) in enumerate(grid):
+        sff = long_windows.get(cases, 16 if cases % 3 == 1 else 20)
         wpc = fpc // sff
+        fpc = wpc * sff
         ragged = (cases // 4) % 2 == 1  # every C both with and without
         tail = 300 * fpc // 1024 if ragged else 0
         x = stress_signal(rng, 2 * fpc + tail, c)
@@ -383,6 +439,8 @@ def search_sweep(rng):
             hist = torch.from_numpy(rng.integers(-32768, 32768, (c, 4)).astype(np.int32))
             wts = torch.from_numpy(rng.integers(-(1 << 22), 1 << 22, (c, 4)).astype(np.int32))
             prev = torch.from_numpy(rng.integers(0, 1 << sfb, c).astype(np.int32))
+        if cases % 4 == 1:  # entry weights on both sides of the penalty's bound
+            wts = penalty_edge_weights(c, shift=cases)
         kw = dict(sfb=sfb, rs=rs, sff=sff)
         full = torch.from_numpy(x[: 2 * fpc])
         got = window_search(full.cuda(), None, hist.cuda(), wts.cuda(), prev.cuda(), wpc=wpc, **kw)
@@ -396,7 +454,8 @@ def search_sweep(rng):
             worst = max(worst, worst_of(got_t, want_t, what))
     torch.cuda.synchronize()
     log(f"[phase 2] window search == plain on {len(grid)} configs "
-        "(sfb 1..8 x rs 1..8 at C 1,2,3,8; sfb 8 at C 255)")
+        "(sfb 1..8 x rs 1..8 at C 1,2,3,8; sfb 4 and 8 at C 255; sff 20 and 16, 300, and the "
+        f"longest that fits at sfb 8, {longest}; entry weights across the penalty's bound and at the int32 ends)")
     return worst
 
 
@@ -409,12 +468,13 @@ def search_sweep_vbr(rng):
 
     from sea_codec_torch.ops.window_search import window_search, window_search_plain
 
-    grid = [(sfb, (1, 2, 3, 8)[sfb % 4], 256) for sfb in range(1, 9)] + [(8, 255, 32)]
-    sff = 16
+    grid = [(sfb, (1, 2, 3, 8)[sfb % 4], 256) for sfb in range(1, 9)]
+    grid += [(8, 255, 32), (4, 2, 320), (5, 3, 320), (4, 255, 40)]
     worst = 0
     for i, (sfb, c, fpc) in enumerate(grid):
+        sff = 16 if i % 3 == 1 else 20
         wpc = fpc // sff
-        x = stress_signal(rng, 2 * fpc, c)
+        x = stress_signal(rng, 2 * wpc * sff, c)
         nw = 2 * wpc
         n_valid = None
         if i % 2:  # the last window ragged
@@ -422,6 +482,8 @@ def search_sweep_vbr(rng):
             n_valid[-1] = sff - 5
         hist = torch.from_numpy(rng.integers(-32768, 32768, (c, 4)).astype(np.int32))
         wts = torch.from_numpy(rng.integers(-(1 << 22), 1 << 22, (c, 4)).astype(np.int32))
+        if i % 4 == 2:
+            wts = penalty_edge_weights(c, shift=i)
         prev = torch.from_numpy(rng.integers(0, 1 << sfb, c).astype(np.int32))
         rs = torch.from_numpy(rng.integers(1, 9, (nw, c)).astype(np.uint8))
         cpu = (torch.from_numpy(x), n_valid, hist, wts, prev)
@@ -440,7 +502,8 @@ def search_sweep_vbr(rng):
                                             f"{what}: ranks-only != full form"))
     torch.cuda.synchronize()
     log(f"[phase 2] window search, VBR forms == plain on {len(grid)} configs "
-        "(per-window sizes 1..8; ranks-only == plain and == the full form; sfb 1..8, C up to 255)")
+        "(per-window sizes 1..8; ranks-only == plain and == the full form; sfb 1..8, C up to 255; "
+        "sff 20 and 16; entry weights across the penalty's bound)")
     return worst
 
 
@@ -546,10 +609,11 @@ def dequant_kernels_exhaustive():
 
 
 def oversize_rows(rng):
-    """Rows longer than the fused CBR kernel's shared memory (255 channels x
-    1,000 frames x 8 bits = 255,000 bytes): the fused wrapper refuses them
-    before any launch, and the router decodes them on the two-kernel path,
-    equal to the plain version."""
+    """Rows longer than a block's shared memory (255 channels x 1,000 frames
+    x 8 bits = 255,000 bytes): the fused CBR kernel streams a row tile by
+    tile, so the router sends them there by default; with the fused kernels
+    off the two-kernel path decodes them. Both equal the plain version.
+    Returns (fused worst, two-kernel worst)."""
     import torch
 
     from sea_codec_torch.ops import cuda_build, dequant, fused_decode, lms_decode
@@ -558,29 +622,30 @@ def oversize_rows(rng):
     n, frames, c, rs, sfb, sff = 2, 1000, 255, 8, 4, 20
     res = rng.integers(0, 256, (n, frames * c * rs // 8), dtype=np.uint8)
     check(res.shape[1] > cuda_build.SMEM_LIMIT, "the oversize case fits shared memory")
+    check(fused_decode.fused_cbr_supported(sfb, rs, frames, c), "the fused CBR kernel refuses a long row")
     sf = rng.integers(0, 1 << sfb, (n, frames // sff, c), dtype=np.uint8)
     hist = rng.integers(-32768, 32768, (n, c, 4)).astype(np.int32)
     wts = rng.integers(-(1 << 20), 1 << 20, (n, c, 4)).astype(np.int32)
     cpu = [torch.from_numpy(a) for a in (res, sf, hist, wts)]
     gpu = [t.cuda() for t in cpu]
-    kw = dict(sfb=sfb, sff=sff, frames=frames)
-    try:
-        fused_decode.decode_cbr_fused(*gpu, rs=rs, **kw)
-    except ValueError:
-        pass
-    else:
-        raise SmokeFailure("decode_cbr_fused took a row wider than shared memory")
-    before = (fused_decode.launches, dequant.cbr_launches, lms_decode.launches)
-    got = decode_chunks_packed(gpu[0], gpu[1], None, gpu[2], gpu[3], residual_size=rs, **kw)
+    kw = dict(sfb=sfb, sff=sff, frames=frames, residual_size=rs)
+    counts = lambda: (fused_decode.launches, dequant.cbr_launches, lms_decode.launches)
+    want = decode_chunks_packed(cpu[0], cpu[1], None, cpu[2], cpu[3], fused=False, **kw)
+    before = counts()
+    got = decode_chunks_packed(gpu[0], gpu[1], None, gpu[2], gpu[3], fused=True, **kw)
     torch.cuda.synchronize()
-    after = (fused_decode.launches, dequant.cbr_launches, lms_decode.launches)
-    check(after == (before[0], before[1] + 1, before[2] + 1),
-          f"oversize rows: expected one dequant and one recurrence launch, counts {before} -> {after}")
-    want = decode_chunks_packed(cpu[0], cpu[1], None, cpu[2], cpu[3], residual_size=rs, fused=False, **kw)
-    err = worst_of([got], [want], "oversize rows on the two-kernel path")
-    log(f"[phase 2] rows of {res.shape[1]} bytes (> {cuda_build.SMEM_LIMIT} of shared memory): refused by "
-        "decode_cbr_fused, decoded by the router on the two-kernel path, == plain")
-    return err
+    check(counts() == (before[0] + 1, before[1], before[2]),
+          f"oversize rows: expected one fused launch, counts {before} -> {counts()}")
+    err_fused = worst_of([got], [want], "oversize rows through the fused kernel")
+    before = counts()
+    got = decode_chunks_packed(gpu[0], gpu[1], None, gpu[2], gpu[3], fused=False, **kw)
+    torch.cuda.synchronize()
+    check(counts() == (before[0], before[1] + 1, before[2] + 1),
+          f"oversize rows: expected one dequant and one recurrence launch, counts {before} -> {counts()}")
+    err_two = worst_of([got], [want], "oversize rows on the two-kernel path")
+    log(f"[phase 2] rows of {res.shape[1]} bytes (> {cuda_build.SMEM_LIMIT} of shared memory): decoded by the "
+        "fused kernel (rows streamed by tile) and by the two-kernel path, both == plain")
+    return err_fused, err_two
 
 
 # ---------------------------------------------------------------------------
@@ -781,7 +846,7 @@ CORPUS_RATE = 44100
 # repeated, per mode: lengths that share no ragged tail length, a 3-channel
 # group, and a tail-only 255-channel file (300 frames of a 5,120-frame
 # chunk), whose group decodes at the full-chunk width (CBR: ~490 KB a row,
-# past the fused kernel's shared memory)
+# more than a block's shared memory: the fused kernel streams it by tile)
 CORPUS_FILES = (
     ((2, 2_901_337), 3), ((2, 2_757_911), 3), ((2, 3_014_020), 3), ((2, 2_840_561), 3),
     ((3, 1_766_003), 2), ((3, 1_693_450), 2),
@@ -857,14 +922,19 @@ def corpus_path(result, rng):
             check(out is not None and out.channels == meta[k][1] and out.sample_rate == CORPUS_RATE,
                   f"{label}: file {fi} header")
             check(np.array_equal(out.samples, single[k]), f"{label}: file {fi} {meta[k]} != decode_sea")
-        for name in ("lms_decode", "dequant_cbr") + (("dequant_vbr",) if env == "0" else ()):
-            check(counts[name] > 0, f"{label} never launched {name}")
         if env == "0":
+            for name in ("lms_decode", "dequant_cbr", "dequant_vbr"):
+                check(counts[name] > 0, f"{label} never launched {name}")
             check(counts["fused_decode_cbr"] == 0 and counts["fused_decode_vbr"] == 0,
                   f"{label}: a fused kernel was launched with the fused kernels off: {counts}")
         else:
+            # the fused CBR kernel takes every CBR group, the 255-channel one
+            # too; the VBR kernel stages a whole row, so a VBR group whose rows
+            # exceed its shared memory goes to the two-kernel path
             check(counts["fused_decode_cbr"] > 0 and counts["fused_decode_vbr"] > 0,
                   f"{label}: the default routing never took a fused kernel: {counts}")
+            check(counts["dequant_cbr"] == 0,
+                  f"{label}: a CBR group left the fused kernel on the default routing: {counts}")
         log(f"[phase 4] decode_corpus, {'default routing' if env is None else 'SEA_FUSED_PROLOG=0 (two-kernel path)'}: "
             f"{len(files)} files, {samples / 1e6:.3f} Msamples in {times[label]:.4f} s "
             f"({samples / 1e6 / times[label]:.3f} Msamples/s), every file == decode_sea; "
@@ -1027,6 +1097,8 @@ def search_at_main_shape(pcm, enc, result):
         # one block per channel, all resident: one channel's chain
         "chain_cycles": nc * f * chain_cycles(SEARCH_STEP_CHAIN)
         + nw * chain_cycles(SEARCH_WINDOW_CHAIN),
+        "chain_cycles_before": nc * f * chain_cycles(SEARCH_STEP_CHAIN_BEFORE)
+        + nw * chain_cycles(SEARCH_WINDOW_CHAIN_BEFORE),
     }
 
 
@@ -1158,10 +1230,11 @@ def vbr_search_at_main_shape(pcm, enc, result, clock_mhz):
     }
     bounds(k, clock_mhz)
     log(f"[phase 5] window_search, VBR file: {file_ms:.3f} ms; bound {k['bound_ms']:.4f} ms "
-        f"(by {k['bound_by']}); chain {k['chain_ms']:.4f} ms at {clock_mhz} MHz")
+        f"(by {k['bound_by']}); chain {k['chain_ms']:.4f} ms at {clock_mhz} MHz "
+        f"({k['chain_ms'] / (2 * nc):.4f} ms per chunk launch)")
     return worst, {
         "file_ms": file_ms, "launches": 2 * nc, "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-        "chain_ms": k["chain_ms"], "pass1_ranks_only_ms_per_chunk": p1_ms,
+        "chain_ms": k["chain_ms"], "least_ms": k["least_ms"], "pass1_ranks_only_ms_per_chunk": p1_ms,
         "pass1_full_form_ms_per_chunk": full1_ms, "pass2_ms_per_chunk": p2_ms,
         "plain_ms_two_chunks": plain_ms, "host_pack_ms": pack_s * 1e3,
     }
@@ -1265,7 +1338,8 @@ def run(here):
     }
     errs["dequant_cbr"], errs["dequant_vbr"] = dequant_sweeps(rng)
     dequant_kernels_exhaustive()
-    over = oversize_rows(rng)
+    over_fused, over = oversize_rows(rng)
+    errs["fused_decode_cbr"] = max(errs["fused_decode_cbr"], over_fused)
     errs["dequant_cbr"] = max(errs["dequant_cbr"], over)
     errs["lms_decode"] = max(errs["lms_decode"], over)
     fixtures(here, rng)
@@ -1288,7 +1362,10 @@ def run(here):
         bounds(k, clock_mhz)
         kernels.append(k)
         log(f"[phase 5] {k['name']}: {k['ms']:.4f} ms; bound {k['bound_ms']:.4f} ms "
-            f"(by {k['bound_by']}); chain {k['chain_ms']:.4f} ms at {clock_mhz} MHz")
+            f"(by {k['bound_by']}); chain {k['chain_ms']:.4f} ms at {clock_mhz} MHz; "
+            f"least {k['least_ms']:.4f} ms, x{k['ms'] / k['least_ms']:.1f}"
+            + (f"; chain by the earlier kernel's model {k['chain_ms_before']:.4f} ms"
+               if "chain_ms_before" in k else ""))
     err, kernels[-1]["vbr"] = vbr_search_at_main_shape(pcm, enc_vbr, result, clock_mhz)
     kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"], err)
     log("[phase 5] kernels: " + ", ".join(

@@ -2,9 +2,18 @@
 
 Replaces the TPU kernel ``sea_codec_tpu/ops/pallas_fused_decode.py``
 ``decode_cbr_fused_single``. On a CUDA tensor, ``decode_cbr_fused`` launches
-``csrc/fused_decode_cbr.cu`` (one block per chunk, one thread per channel
-stream; see the source note there). On a CPU tensor it runs the plain
-PyTorch version, ``decode_cbr_plain``. ``launches`` counts kernel launches.
+``csrc/fused_decode_cbr.cu``. What bounds it is one stream's chain of
+``frames`` dependent LMS steps, walked by a thread that issues in order, so
+everything that is not the chain runs on other warps: a block decodes
+``chunks_per_block(C)`` chunks (one warp of (chunk, channel) streams up to 16
+channels) with recurrence warps, one thread per stream, that walk only the
+chain, and producer warps (one per two streams) that unpack and dequantize
+tiles of ``tile_frames(C)`` frames straight from device memory into a
+shared-memory ring of dq values and copy finished PCM tiles out in 8-byte
+lines; the two meet at mbarriers (see the source note there). A block stages
+no packed row, so rows of any length decode. On a CPU tensor it runs the
+plain PyTorch version, ``decode_cbr_plain``. ``launches`` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -26,10 +35,32 @@ def decode_cbr_plain(res_bytes, sf_codes, hist0, wts0, *, sfb, rs, sff, frames):
     return decode_chunks_fn(codes, sf_codes, hist0, wts0, sfb, sff, rs)
 
 
+def tile_frames(c: int) -> int:
+    """Frames in one tile of the kernel's rings: a multiple of the 32 frames
+    a recurrence thread holds in registers, about 1,024 samples for few
+    channels and 32 frames from 32 channels on."""
+    return 32 * min(8, max(1, -(-1024 // (32 * c))))
+
+
+def chunks_per_block(c: int) -> int:
+    """Chunks one block decodes: as many as fill one warp with (chunk,
+    channel) streams, one from 17 channels on."""
+    return max(1, 32 // c)
+
+
+def _smem_bytes(sfb: int, c: int) -> int:
+    """Dynamic shared memory of one block (layout in fused_decode_cbr.cu):
+    two slots of dq and two of PCM, each ``chunks_per_block`` sub-tiles of
+    int16[tile, C] plus 4 of padding; the scale-factor values; 8 mbarriers."""
+    slot = chunks_per_block(c) * (tile_frames(c) * c + 4) * 2
+    return 2 * 2 * slot + 4 * (1 << sfb) + 8 * 8
+
+
 def fused_cbr_supported(sfb: int, rs: int, frames: int, c: int) -> bool:
-    """Whether the kernel can take chunks of this geometry: a block stages
-    the scale-factor values and one whole packed row in shared memory."""
-    return 4 * (1 << sfb) + -(-(frames * c * rs) // 8) + 2 <= cuda_build.SMEM_LIMIT
+    """Whether the kernel can take chunks of this geometry. The kernel
+    streams the packed row tile by tile, so neither the row's length nor
+    ``rs`` bounds it: the rings fit for every legal (sfb, C)."""
+    return 1 <= sfb <= 8 and 1 <= c <= 255 and _smem_bytes(sfb, c) <= cuda_build.SMEM_LIMIT
 
 
 def _check_inputs(res_bytes, sf_codes, hist0, wts0, sfb, rs, sff, frames):
@@ -54,10 +85,7 @@ def _check_inputs(res_bytes, sf_codes, hist0, wts0, sfb, rs, sff, frames):
     if hist0.shape != (n, c, 4) or wts0.shape != (n, c, 4):
         raise ValueError("hist0/wts0 must be [N, C, 4]")
     if not fused_cbr_supported(sfb, rs, frames, c):
-        raise ValueError(
-            f"chunk of {need} residual bytes exceeds shared memory; "
-            "device_decode.decode_chunks_packed routes such chunks to the two-kernel path"
-        )
+        raise ValueError(f"sfb={sfb} c={c} exceeds the kernel's shared memory")
     return n, w, c, need
 
 
@@ -90,7 +118,8 @@ def decode_cbr_fused(res_bytes, sf_codes, hist0, wts0, *, sfb, rs, sff, frames):
         rc = fn(
             res_bytes.data_ptr(), sf_codes.data_ptr(), hist0.data_ptr(),
             wts0.data_ptr(), sfval.data_ptr(), out.data_ptr(),
-            n, res_bytes.shape[1], need, c, w, frames, 1 << sfb, rs, sff,
+            n, res_bytes.shape[1], need, c, w, frames, 1 << sfb, rs, sff, tile_frames(c),
+            chunks_per_block(c),
             float(c0_t[rs]), float(stepf_t[rs]), float(endv_t[rs]), int(kmax_t[rs]),
             stream,
         )
@@ -102,6 +131,6 @@ def decode_cbr_fused(res_bytes, sf_codes, hist0, wts0, *, sfb, rs, sff, frames):
 def _launcher():
     fn = cuda_build.load("fused_decode_cbr").sea_fused_decode_cbr
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, f, f, i, p]
+    fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, f, f, f, i, p]
     fn.restype = ctypes.c_int
     return fn

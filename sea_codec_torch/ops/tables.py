@@ -255,3 +255,49 @@ def dqt(residual_bits: int, scale_factor_bits: int) -> np.ndarray:
             out[s, 2 * k + 1] = -val
     out.setflags(write=False)
     return out
+
+
+# Rows of ``search_table``: 2^(rs+2) + 1 half-step quotients for rs in 1..=8.
+SEARCH_TAB_ROWS = 4 * 510 + 8  # = 2048
+
+
+def search_table_rows(residual_size) -> tuple[int, int]:
+    """(first row, rows) of ``search_table`` that a launch stages: one
+    residual size's rows, or every row when ``residual_size`` is None (sizes
+    per window)."""
+    if residual_size is None:
+        return 0, SEARCH_TAB_ROWS
+    return (4 << residual_size) + residual_size - 9, (4 << residual_size) + 1
+
+
+@lru_cache(maxsize=None)
+def search_table(scale_factor_bits: int) -> np.ndarray:
+    """int32[SEARCH_TAB_ROWS, 2^sfb]: the search kernel's one-lookup
+    quantizer and dequantizer. The kernel divides in half steps: its clamped
+    quotient ``n2`` in ``-2^(rs+1)..2^(rs+1)`` stands for the reference's
+    clamped quotient ``n = (n2 + 1) >> 1`` in ``-2^rs..2^rs``. Row
+    ``search_table_rows(rs)[0] + 2^(rs+1) + n2`` holds, for each candidate
+    scale factor ``s``, ``dqt(rs, sfb)[s, code] << 8 | code`` with ``code =
+    quant_tab()[quant_offsets()[rs] + 2^rs + n]``: the code is the low byte
+    and the dequantized value (|dq| <= 27090) the arithmetic shift by 8.
+    Candidates are the minor axis, so the 32 lanes of a warp, each with its
+    own row, read 32 different banks."""
+    codes = quant_tab().astype(np.int64)
+    offsets = quant_offsets()
+    out = np.empty((SEARCH_TAB_ROWS, 1 << scale_factor_bits), dtype=np.int32)
+    for rb in range(1, 9):
+        first, rows = search_table_rows(rb)
+        n = (np.arange(-(2 << rb), (2 << rb) + 1) + 1) >> 1
+        q = codes[int(offsets[rb]) + (1 << rb) + n]
+        out[first : first + rows] = (dqt(rb, scale_factor_bits).astype(np.int64).T[q] << 8) | q[:, None]
+    out.setflags(write=False)
+    return out
+
+
+@lru_cache(maxsize=None)
+def search_kernel_table(scale_factor_bits: int, device):
+    """``search_table`` on ``device``, made once per (sfb, device) like
+    ``kernel_tables``."""
+    import torch
+
+    return torch.as_tensor(search_table(scale_factor_bits).copy(), device=device)

@@ -2,9 +2,17 @@
 
 Replaces the TPU kernel ``sea_codec_tpu/ops/pallas_encode.py``
 ``run_window_search``. On a CUDA tensor, ``window_search`` launches
-``csrc/window_search.cu`` (one block per channel, one thread per candidate,
-one launch for every window of every chunk; see the source note there). On
-a CPU tensor it runs the plain PyTorch version, ``window_search_plain``,
+``csrc/window_search.cu``: one block per channel, one thread per candidate
+(a block of max(32, 2^sfb) threads), one launch for every window of every
+chunk. The search is bound by one channel's serial chain of windows x sff
+sample steps, walked by a lone warp, so the kernel keeps everything else off
+that chain: the next window's samples, size and valid count are loaded a
+window ahead; at sfb <= 5 the winner and its state pass by warp reductions
+and shuffles with no block barrier; the quantizer and dequantizer are one
+shared-memory lookup (``tables.search_table``) where the table fits, else
+the arithmetic form; the weights penalty is skipped behind an exact guard;
+and the sample loop is unrolled for sff == 20 (see the source note there).
+On a CPU tensor it runs the plain PyTorch version, ``window_search_plain``,
 which is ``ops.device_encode.encode_windows_fn`` plus the per-chunk entry
 state snapshots. ``launches`` counts kernel launches, and
 ``ranks_only_launches`` those of them in the ranks-only form.
@@ -61,11 +69,34 @@ def window_search_plain(
     )
 
 
-def _smem_bytes(s, sff, ranks_only):
-    """Dynamic shared memory of one block (layout in window_search.cu): the
-    kernel stages every residual size's constants."""
-    words = sff + 2 * 9 * s + 5 * 9  # samples, sfval+recip tables, constants
-    return 4 * words + tables.QUANT_TAB_SIZE + (0 if ranks_only else sff * s)
+# window_search.cu's static shared memory (the warps' minima and the winner's
+# state, used at sfb 6-8): it counts against a block's limit with the dynamic
+_STATIC_SMEM = 4 * (2 * 8 * 3 + 2 * 8)
+
+
+def _smem_bytes(s, sff, ranks_only, table_rows):
+    """Dynamic shared memory of one block (layout in window_search.cu):
+    reciprocals of every size, two windows of samples, the [sff, s] code
+    buffer, and the quantizer: ``table_rows`` rows of the lookup table, or
+    with ``table_rows`` 0 the arithmetic form's constants of every size
+    (scale-factor values, curve constants, zig-zag tables)."""
+    common = 4 * (9 * s + 2 * sff) + (0 if ranks_only else sff * s)
+    if table_rows:
+        return common + 4 * table_rows * s
+    return common + 4 * (9 * s + 5 * 9) + tables.QUANT_TAB_SIZE
+
+
+def _table_rows(s, sff, ranks_only, rs):
+    """Rows of the lookup table the launch stages (``rs`` an int, or None for
+    per-window sizes), or 0 where the table does not fit shared memory and
+    the kernel takes its arithmetic form. Raises where that does not fit."""
+    rows = tables.search_table_rows(rs)[1]
+    limit = cuda_build.SMEM_LIMIT - _STATIC_SMEM
+    if _smem_bytes(s, sff, ranks_only, rows) <= limit:
+        return rows
+    if _smem_bytes(s, sff, ranks_only, 0) <= limit:
+        return 0
+    raise ValueError(f"sff={sff} at sfb={s.bit_length() - 1} exceeds the kernel's shared memory")
 
 
 def window_search(
@@ -84,8 +115,6 @@ def window_search(
     per_window = torch.is_tensor(rs)
     if not (1 <= sfb <= 8 and sff >= 1 and wpc >= 1):
         raise ValueError(f"bad search config sfb={sfb} sff={sff} wpc={wpc}")
-    if _smem_bytes(s, sff, ranks_only) > cuda_build.SMEM_LIMIT:
-        raise ValueError(f"sff={sff} at sfb={sfb} exceeds the kernel's shared memory")
     if samples.dim() != 2 or samples.shape[0] % sff or not 1 <= c <= 255:
         raise ValueError(f"samples must be [W*sff, C<=255], got {tuple(samples.shape)}")
     nw = samples.shape[0] // sff
@@ -103,6 +132,7 @@ def window_search(
             raise ValueError(f"rs must be uint8/int32[{nw}, {c}] on {device}")
     elif not 1 <= rs <= 8:
         raise ValueError(f"bad residual size {rs}")
+    table_rows = _table_rows(s, sff, ranks_only, None if per_window else int(rs))
     if device.type == "cpu":
         return window_search_plain(
             samples, n_valid, hist0, wts0, prev0,
@@ -130,6 +160,10 @@ def window_search(
     nv = None if n_valid is None else n_valid.contiguous()
     samples = samples.contiguous()
     hist0, wts0, prev0 = hist0.contiguous(), wts0.contiguous(), prev0.contiguous()
+    tab = None
+    if table_rows:
+        first = tables.search_table_rows(None if per_window else int(rs))[0]
+        tab = tables.search_kernel_table(sfb, device)[first : first + table_rows]
     fn = _launcher()
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(device):
@@ -137,10 +171,10 @@ def window_search(
         rc = fn(
             samples.data_ptr(), ptr(nv), ptr(rs_w), hist0.data_ptr(), wts0.data_ptr(), prev0.data_ptr(),
             sfval.data_ptr(), recip.data_ptr(), curve.data_ptr(), ints.data_ptr(),
-            qtab.data_ptr(), sf.data_ptr(), ptr(codes), ranks.data_ptr(),
+            qtab.data_ptr(), ptr(tab), sf.data_ptr(), ptr(codes), ranks.data_ptr(),
             ehist.data_ptr(), ewts.data_ptr(), hist.data_ptr(), wts.data_ptr(),
             prev.data_ptr(), c, s, sff, nw, wpc, 0 if per_window else int(rs),
-            int(ranks_only), qtab.numel(), stream,
+            int(ranks_only), qtab.numel(), table_rows, stream,
         )
     cuda_build.check(rc, "sea_window_search")
     launches += 1
@@ -151,6 +185,6 @@ def window_search(
 def _launcher():
     fn = cuda_build.load("window_search").sea_window_search
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 19 + [i] * 8 + [p]
+    fn.argtypes = [p] * 20 + [i] * 9 + [p]
     fn.restype = ctypes.c_int
     return fn

@@ -121,8 +121,10 @@ def test_corpus_wave_drain_gives_the_same_pcm(vbr, monkeypatch):
 
 def test_oversize_tail_group_takes_the_two_kernel_path(monkeypatch):
     """A tail-only 255-channel CBR file decodes in a group at the full-chunk
-    width (~490 KB a row), past the fused kernel's shared memory: the router
-    sends it to the two-kernel path under the default routing."""
+    width (~490 KB a row), more than a block's shared memory. The fused CBR
+    kernel streams a row by tile, so the default routing keeps the group on
+    it; with the fused kernels off the router sends it to the two-kernel
+    path."""
     channels = 255
     rng = np.random.default_rng(2)
     pcm = rng.integers(-20000, 20000, 24 * channels).astype(np.int16)
@@ -135,7 +137,13 @@ def test_oversize_tail_group_takes_the_two_kernel_path(monkeypatch):
         )
     monkeypatch.delenv("SEA_FUSED_PROLOG", raising=False)
     (out,) = batch.decode_corpus([enc], device="cpu")
+    assert calls == ["decode_cbr_fused"]
+    calls.clear()
+    monkeypatch.setenv("SEA_FUSED_PROLOG", "0")
+    (two,) = batch.decode_corpus([enc], device="cpu")
     assert calls == ["unpack_dequant_cbr"]
+    np.testing.assert_array_equal(two.samples, out.samples)
+    monkeypatch.delenv("SEA_FUSED_PROLOG")
     calls.clear()
     np.testing.assert_array_equal(out.samples, sea_decode(enc, device="cpu").samples)
     assert calls == ["decode_cbr_fused"]  # the tail at its own length fits

@@ -93,11 +93,19 @@ def test_fused_gates_decide_from_the_geometry():
     from sea_codec_torch.ops.fused_decode import fused_cbr_supported
     from sea_codec_torch.ops.fused_decode_vbr import fused_vbr_supported
 
+    from sea_codec_torch.ops import fused_decode
+
     assert fused_cbr_supported(4, 3, 5120, 2)
     assert fused_cbr_supported(8, 8, 5120, 6)  # a 30 KB row
-    assert not fused_cbr_supported(4, 3, 5120, 255)  # ~490 KB: a padded tail-only file
-    row = SMEM_LIMIT - 4 * 16 - 2
-    assert fused_cbr_supported(4, 8, row, 1) and not fused_cbr_supported(4, 8, row + 1, 1)
+    # the CBR kernel streams a row tile by tile: no row is too long for it
+    assert fused_cbr_supported(4, 3, 5120, 255)  # ~490 KB: a padded tail-only file
+    assert fused_cbr_supported(4, 8, 65535, 1) and fused_cbr_supported(8, 8, 65535, 255)
+    assert not fused_cbr_supported(4, 3, 5120, 256) and not fused_cbr_supported(9, 3, 5120, 2)
+    # its rings: two slots of dq and two of PCM, a warp of streams to a block
+    assert [fused_decode.chunks_per_block(c) for c in (1, 2, 3, 16, 17, 255)] == [32, 16, 10, 2, 1, 1]
+    assert [fused_decode.tile_frames(c) for c in (1, 2, 8, 32, 255)] == [256, 256, 128, 32, 32]
+    assert fused_decode._smem_bytes(4, 2) == 4 * 16 * (256 * 2 + 4) * 2 + 64 + 64
+    assert max(fused_decode._smem_bytes(8, c) for c in range(1, 256)) <= SMEM_LIMIT
     assert fused_vbr_supported(4, 256, 2, 3203)
     assert fused_vbr_supported(4, 256, 255, 65535)
     assert not fused_vbr_supported(4, 256, 255, 490_000)
@@ -107,8 +115,10 @@ def test_fused_gates_decide_from_the_geometry():
 
 
 def test_fused_wrappers_refuse_oversize_rows():
-    """A row wider than shared memory is refused by the wrapper itself, on
-    any device, instead of reaching a launch that would fail."""
+    """A row wider than shared memory is refused by the VBR wrapper itself,
+    on any device, instead of reaching a launch that would fail. The CBR
+    kernel stages no row and takes it; what its wrapper refuses is a channel
+    count past the format's 255."""
     from sea_codec_torch.ops.fused_decode import decode_cbr_fused
     from sea_codec_torch.ops.fused_decode_vbr import decode_vbr_fused
 
@@ -116,8 +126,12 @@ def test_fused_wrappers_refuse_oversize_rows():
     sf = torch.zeros((1, 50, c), dtype=torch.uint8)
     st = torch.zeros((1, c, 4), dtype=torch.int32)
     res = torch.zeros((1, frames * c), dtype=torch.uint8)
-    with pytest.raises(ValueError, match="exceeds shared memory"):
-        decode_cbr_fused(res, sf, st, st, sfb=4, rs=8, sff=20, frames=frames)
+    out = decode_cbr_fused(res, sf, st, st, sfb=4, rs=8, sff=20, frames=frames)
+    assert out.shape == (1, frames, c) and out.dtype == torch.int16
+    wide = torch.zeros((1, 50, 256), dtype=torch.uint8)
+    st_wide = torch.zeros((1, 256, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="bad decode config"):
+        decode_cbr_fused(res, wide, st_wide, st_wide, sfb=4, rs=8, sff=20, frames=frames)
     with pytest.raises(ValueError, match="exceeds shared memory"):
         decode_vbr_fused(res, sf, torch.full_like(sf, 8), st, st, sfb=4, sff=20, frames=frames)
 
