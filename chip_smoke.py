@@ -10,19 +10,23 @@ Phases, in order; any failure exits non-zero:
    bit for bit (tolerance 0: an integer codec): the fused CBR decode over
    rs 1..8 x sfb {1,4,8} x C {1,2,8,255} with random bytes and LMS states;
    the fused VBR decode over random per-window sizes 1..8 x sfb {1,4,8} x
-   C {1,2,8,255} with partial last windows; for both, an exhaustive dequant
+   C {1,2,8,255} with partial last windows, then sff 1 and 255, C 3, 5, 17,
+   31 and 33, batches of 1 to 33 chunks that fill no whole number of blocks,
+   and malformed size and scale-factor tables; for both, an exhaustive dequant
    check against the table build; the window search over sfb 1..8 x rs
    1..8 on clipping stress signals, at sff 20 (the unrolled loop) and 16,
    with and without a ragged tail, from entry weights on both sides of the
    weights penalty's bound and at the int32 ends, and in its VBR forms
    (per-window sizes; ranks-only, also against the full form).
    The kernels of the two-kernel decode: the LMS recurrence on random dq
-   streams (1 to 80,000 streams, odd frame counts, extreme weights); the
+   streams (1 to 80,000 streams, C 1 to 255, 300 and 480, frame counts off every
+   tile, extreme weights, each stream also 2 bytes off its alignment); the
    CBR dequant over rs 1..8 x sfb {1,4,8} x C {1,2,3,8,255} and the VBR
    dequant over random size tables, both with full and partial last
    windows and both against the table build for every (sfb, rs, sf, code);
-   and a batch whose rows exceed a block's shared memory, which the fused
-   CBR kernel streams tile by tile and the two-kernel path decodes as well.
+   and CBR and VBR batches whose rows exceed a block's shared memory, which
+   the fused kernels stream tile by tile and the two-kernel path decodes as
+   well.
 3. The committed CBR and VBR fixtures: ``sea_encode`` gives their bytes and
    ``sea_decode`` their PCM, through the batch engine and through the
    sessions (``engine="session"``); ``SeaDecoder.seek`` and ``decode_range``
@@ -36,14 +40,15 @@ Phases, in order; any failure exits non-zero:
    with VBR at 2.5 bits. (b) ``decode_corpus`` on a corpus of 34 files,
    ~180 Msamples: CBR defaults and VBR at 2.5 bits, stereo and 3-channel
    files of differing ragged lengths and a tail-only 255-channel file per
-   mode, once with the default routing (every CBR group on the fused
-   kernel) and once with the fused kernels off (``SEA_FUSED_PROLOG=0``:
-   every batch on the two-kernel path); every
+   mode, once with the default routing (every group on the fused kernels,
+   no two-kernel launch) and once with the fused kernels off
+   (``SEA_FUSED_PROLOG=0``: every batch on the two-kernel path); every
    file's PCM equal to ``decode_sea``'s. (c) One file per mode through
    ``SeaEncoder``/``SeaDecoder`` chunk by chunk, bytes equal to the batch
    engine's.
 5. The kernels at the main-path shapes: each decode kernel equal to its
-   plain version on all full chunks; the search kernel equal to the CBR
+   plain version on all full chunks, timed there and on one chunk alone (the
+   recurrence on the CBR and the VBR dq stream); the search kernel equal to the CBR
    file's scale factors, codes and chunk states, and to its plain version
    on the first two chunks and on the masked tail; its VBR forms equal to
    the VBR file (the host pack of their outputs giving its bytes), to the
@@ -77,27 +82,31 @@ H100_ISSUE_PER_S = H100_F32_OPS_PER_S / 2
 H100_INT32_OPS_PER_S = H100_F32_OPS_PER_S / 4
 # (int32, f32) instructions per sample (decode) and per candidate-sample
 # (search), counted from the kernels' inner loops in sea_codec_torch/csrc.
-# Fused CBR decode: the recurrence thread's frame step (23: the dot, shift,
-# add, clamp, the weight step, a shared-memory load and store) plus a
-# producer's share per sample (21: an eighth of the group's byte loads,
-# assembly and divisions, the code's shift and mask, the scale factor's two
-# loads with their address, the window bookkeeping, the copy-out) and its f32
-# dequant (I2F, 2 FMUL, 2 FADD, floor, F2I).
+# The three decode kernels share the recurrence of csrc/decode_ring.cuh: per
+# sample 23 on the recurrence thread (the dot, shift, add, clamp, the weight
+# step, a shared-memory load and store) and ~2 of the producers' PCM copy-out.
+# Fused CBR decode: plus a producer's share per sample (19: an eighth of the
+# group's byte loads, assembly and divisions, the code's shift and mask, the
+# scale factor's two loads with their address, the window bookkeeping) and
+# its f32 dequant (I2F, 2 FMUL, 2 FADD, floor, F2I).
 DECODE_OPS_PER_SAMPLE = (44, 7)
 # Search, the unrolled table step: the carried dot (8 multiply-adds), sea_div
 # (2), the clamp and its limits (6), the lookup (2), the reconstruction (3),
 # the rank (3), the weight step (4), the sign (2), the code store and the
 # sample load (2); f32: the penalty guard (4 I2F, FMUL, 3 FFMA, FMNMX).
 SEARCH_OPS_PER_STEP = (32, 9)
-# the VBR decode's frame loop: the CBR count less the offset multiply, plus
-# the byte-index clamp and the cursor step; and per window, per size read,
-# a load, an add and a select-add for wsum and the prefix
-VBR_DECODE_OPS_PER_SAMPLE = (35, 5)
-VBR_DECODE_OPS_PER_SIZE = 3
-# the standalone recurrence's frame step: the dot (4), >>13, +dq, clamp (2),
-# the weight step (>>4, negate, 4 x compare-select-add), the dq load and the
-# store with their addresses (4); no f32
-LMS_OPS_PER_SAMPLE = (25, 0)
+# Fused VBR decode: the function's work is the CBR decode's with the code's
+# width read per sample (its size's load, the mask from it) at an affine bit
+# offset (start + t*wsum + prefix: a multiply-add and an add), and per
+# (window, channel) entry the size's load and the prefix's add. How this
+# kernel groups its producers' work (divisions, table scans, byte windows)
+# is its own overhead, not the function's, and is not counted.
+VBR_DECODE_OPS_PER_SAMPLE = (DECODE_OPS_PER_SAMPLE[0] + 4, DECODE_OPS_PER_SAMPLE[1])
+VBR_DECODE_OPS_PER_ENTRY = 2
+# the standalone recurrence: the shared 25 plus the producers' copy in
+# 8-byte lines (~3 a sample: the division into frame and line, two addresses,
+# the load, the store, the loop, per four samples); no f32
+LMS_OPS_PER_SAMPLE = (28, 0)
 # the dequant prologs' frame step: bit offset, byte index, two guarded byte
 # loads, window, shift, mask, k, sign (3), store address (2), loop (3); f32:
 # I2F, 2 FMUL, 2 FADD, floor, F2I. VBR adds the index clamp.
@@ -303,27 +312,59 @@ def random_vbr_batch(rng, n, c, sfb, frames, sff):
     return res, sf, rs, hist, wts
 
 
+def malform_vbr_tables(rng, sf, rs, sfb):
+    """The same batch with malformed tables: sizes 0, 9 and 255 among the
+    legal ones and scale factors at or past 2^sfb (the kernels clamp and
+    mask them as they read them, and so does the plain version)."""
+    rs = rs.copy()
+    sf = sf.copy()
+    bad = rng.random(rs.shape) < 0.3
+    rs[bad] = rng.choice(np.array([0, 9, 255], np.uint8), int(bad.sum()))
+    sf |= (rng.integers(1, 256 >> sfb, sf.shape) << sfb).astype(np.uint8) if sfb < 8 else 0
+    return sf, rs
+
+
+# (chunks, channels, frames, sff) beyond the grid: sff 1 (a window a frame)
+# and 255 (longer than a tile), channel counts that leave a warp part-empty
+# or overflow it, batches that are not a multiple of a block's chunks, one
+# chunk alone
+VBR_EDGE_CASES = (
+    (5, 2, 600, 1), (3, 1, 513, 1), (2, 3, 700, 255), (7, 3, 257, 2), (1, 17, 130, 20),
+    (2, 31, 200, 3), (2, 33, 97, 1), (1, 255, 40, 255), (17, 2, 5120, 20), (1, 2, 5120, 20),
+    (11, 5, 300, 7), (33, 1, 64, 20),
+)
+
+
 def vbr_decode_sweep(rng):
     import torch
 
     from sea_codec_torch.ops.fused_decode_vbr import decode_vbr_fused, decode_vbr_plain
 
     worst = 0
-    cases = 0
+    cases = []
     for sfb in (1, 4, 8):
         for c in (1, 2, 8, 255):
             for frames, sff in ((200, 20), (197, 20), (61, 7), (40, 1)):
                 if c == 255 and frames > 61:
                     continue
-                cpu = [torch.from_numpy(a) for a in random_vbr_batch(rng, 3, c, sfb, frames, sff)]
-                kw = dict(sfb=sfb, sff=sff, frames=frames)
-                got = decode_vbr_fused(*[t.cuda() for t in cpu], **kw)
-                want = decode_vbr_plain(*cpu, **kw)
-                worst = max(worst, worst_of([got], [want], f"vbr decode sfb={sfb} c={c} frames={frames}"))
-                cases += 1
+                cases.append((3, c, frames, sff, sfb, False))
+    cases += [(n, c, frames, sff, (1, 4, 8)[i % 3], i % 2 == 1)
+              for i, (n, c, frames, sff) in enumerate(VBR_EDGE_CASES)]
+    for n, c, frames, sff, sfb, malformed in cases:
+        res, sf, rs, hist, wts = random_vbr_batch(rng, n, c, sfb, frames, sff)
+        if malformed:
+            sf, rs = malform_vbr_tables(rng, sf, rs, sfb)
+        cpu = [torch.from_numpy(a) for a in (res, sf, rs, hist, wts)]
+        kw = dict(sfb=sfb, sff=sff, frames=frames)
+        got = decode_vbr_fused(*[t.cuda() for t in cpu], **kw)
+        want = decode_vbr_plain(*cpu, **kw)
+        worst = max(worst, worst_of([got], [want], f"vbr decode n={n} c={c} sfb={sfb} frames={frames} "
+                                                   f"sff={sff} malformed={malformed}"))
     torch.cuda.synchronize()
-    log(f"[phase 2] fused VBR decode == plain on {cases} configs (sizes 1..8 per window x "
-        "sfb 1,4,8 x C 1,2,8,255, partial last windows)")
+    log(f"[phase 2] fused VBR decode == plain on {len(cases)} configs (sizes 1..8 per window x "
+        "sfb 1,4,8 x C 1,2,8,255, partial last windows; sff 1 and 255, C 3, 5, 17, 31, 33, "
+        "batches of 1 to 33 chunks across the blocks' 32 // C, tables with sizes 0, 9, 255 "
+        "and scale factors past 2^sfb)")
     return worst
 
 
@@ -509,14 +550,20 @@ def search_sweep_vbr(rng):
 
 def lms_sweep(rng):
     """The recurrence kernel on random dq streams and entry states: 1 to
-    80,000 streams (both block widths of the launcher), frame counts that
-    are multiples of nothing, weights up to the whole int32 range."""
+    80,000 streams, channel counts that fill a block's warp or not (1, 2, 3,
+    8, 17, 255, and past the format up to the most one block holds), frame
+    counts that are multiples of nothing and of no tile,
+    weights up to the whole int32 range, and streams whose rows and base
+    start off every copy width's alignment (N*C odd, a base 2 bytes past a
+    16-byte boundary)."""
     import torch
 
+    from sea_codec_torch.ops import lms_decode as lms_decode_mod
     from sea_codec_torch.ops.lms_decode import lms_decode, lms_decode_plain
 
     shapes = [(1, 1, 1), (1, 37, 1), (3, 200, 2), (17, 333, 3), (2, 65, 255),
-              (600, 97, 8), (40000, 33, 2)]
+              (600, 97, 8), (40000, 33, 2), (7, 300, 3), (3, 257, 17), (3, 70, 255),
+              (33, 513, 1), (5, 95, 2), (2, 40, 300), (2, 45, lms_decode_mod.MAX_CHANNELS)]
     worst = 0
     for i, (n, f, c) in enumerate(shapes):
         lim = (1 << 14, 1 << 24, 1 << 31)[i % 3]
@@ -524,11 +571,22 @@ def lms_sweep(rng):
         hist = rng.integers(-32768, 32768, (n, c, 4)).astype(np.int32)
         wts = rng.integers(-lim, lim, (n, c, 4)).astype(np.int32)
         cpu = [torch.from_numpy(a) for a in (dq, hist, wts)]
-        got = lms_decode(*[t.cuda() for t in cpu])
-        worst = max(worst, worst_of([got], [lms_decode_plain(*cpu)], f"lms_decode n={n} f={f} c={c}"))
+        want = lms_decode_plain(*cpu)
+        gpu = [t.cuda() for t in cpu]
+        got = lms_decode(*gpu)
+        worst = max(worst, worst_of([got], [want], f"lms_decode n={n} f={f} c={c}"))
+        # the same stream one int16 past an aligned allocation
+        flat = torch.empty(dq.size + 1, dtype=torch.int16, device="cuda")
+        moved = flat[1:].view(f, n, c)
+        moved.copy_(gpu[0])
+        check(moved.data_ptr() % 16 == 2, "the shifted stream is aligned")
+        got = lms_decode(moved, gpu[1], gpu[2])
+        worst = max(worst, worst_of([got], [want], f"lms_decode n={n} f={f} c={c} at a 2-byte offset"))
     torch.cuda.synchronize()
-    log(f"[phase 2] LMS recurrence == plain on {len(shapes)} shapes "
-        f"(streams {shapes[0][0] * shapes[0][2]}..{shapes[-1][0] * shapes[-1][2]}, weights to 2^31)")
+    log(f"[phase 2] LMS recurrence == plain on {len(shapes)} shapes, each also at a 2-byte offset "
+        f"(streams {shapes[0][0] * shapes[0][2]}..{shapes[6][0] * shapes[6][2]}, C 1, 2, 3, 8, 17, 255 "
+        f"and past the format's 255: 300 and {lms_decode_mod.MAX_CHANNELS}, the most a block's warps hold, "
+        "frames off every tile, weights to 2^31)")
     return worst
 
 
@@ -610,42 +668,49 @@ def dequant_kernels_exhaustive():
 
 def oversize_rows(rng):
     """Rows longer than a block's shared memory (255 channels x 1,000 frames
-    x 8 bits = 255,000 bytes): the fused CBR kernel streams a row tile by
-    tile, so the router sends them there by default; with the fused kernels
-    off the two-kernel path decodes them. Both equal the plain version.
-    Returns (fused worst, two-kernel worst)."""
+    x 8 bits = 255,000 bytes), CBR and VBR: the fused kernels stream a row
+    tile by tile, so the router sends them there by default; with the fused
+    kernels off the two-kernel path decodes them. Both equal the plain
+    version. Returns the worst differences {kernel: err}."""
     import torch
 
-    from sea_codec_torch.ops import cuda_build, dequant, fused_decode, lms_decode
+    from sea_codec_torch.ops import cuda_build, dequant, fused_decode, fused_decode_vbr, lms_decode
     from sea_codec_torch.ops.device_decode import decode_chunks_packed
 
-    n, frames, c, rs, sfb, sff = 2, 1000, 255, 8, 4, 20
-    res = rng.integers(0, 256, (n, frames * c * rs // 8), dtype=np.uint8)
+    n, frames, c, sfb, sff = 2, 1000, 255, 4, 20
+    w = frames // sff
+    rs_v = np.where(rng.random((n, w, c)) < 0.05, 7, 8).astype(np.uint8)
+    res = rng.integers(0, 256, (n, frames * c), dtype=np.uint8)
     check(res.shape[1] > cuda_build.SMEM_LIMIT, "the oversize case fits shared memory")
-    check(fused_decode.fused_cbr_supported(sfb, rs, frames, c), "the fused CBR kernel refuses a long row")
-    sf = rng.integers(0, 1 << sfb, (n, frames // sff, c), dtype=np.uint8)
+    check(fused_decode.fused_cbr_supported(sfb, c), "the fused CBR kernel refuses a long row")
+    check(fused_decode_vbr.fused_vbr_supported(sfb, sff, c), "the fused VBR kernel refuses a long row")
+    sf = rng.integers(0, 1 << sfb, (n, w, c), dtype=np.uint8)
     hist = rng.integers(-32768, 32768, (n, c, 4)).astype(np.int32)
     wts = rng.integers(-(1 << 20), 1 << 20, (n, c, 4)).astype(np.int32)
-    cpu = [torch.from_numpy(a) for a in (res, sf, hist, wts)]
-    gpu = [t.cuda() for t in cpu]
-    kw = dict(sfb=sfb, sff=sff, frames=frames, residual_size=rs)
-    counts = lambda: (fused_decode.launches, dequant.cbr_launches, lms_decode.launches)
-    want = decode_chunks_packed(cpu[0], cpu[1], None, cpu[2], cpu[3], fused=False, **kw)
-    before = counts()
-    got = decode_chunks_packed(gpu[0], gpu[1], None, gpu[2], gpu[3], fused=True, **kw)
-    torch.cuda.synchronize()
-    check(counts() == (before[0] + 1, before[1], before[2]),
-          f"oversize rows: expected one fused launch, counts {before} -> {counts()}")
-    err_fused = worst_of([got], [want], "oversize rows through the fused kernel")
-    before = counts()
-    got = decode_chunks_packed(gpu[0], gpu[1], None, gpu[2], gpu[3], fused=False, **kw)
-    torch.cuda.synchronize()
-    check(counts() == (before[0], before[1] + 1, before[2] + 1),
-          f"oversize rows: expected one dequant and one recurrence launch, counts {before} -> {counts()}")
-    err_two = worst_of([got], [want], "oversize rows on the two-kernel path")
-    log(f"[phase 2] rows of {res.shape[1]} bytes (> {cuda_build.SMEM_LIMIT} of shared memory): decoded by the "
-        "fused kernel (rows streamed by tile) and by the two-kernel path, both == plain")
-    return err_fused, err_two
+    counts = lambda: (fused_decode.launches, fused_decode_vbr.launches, dequant.cbr_launches,
+                      dequant.vbr_launches, lms_decode.launches)
+    errs = {}
+    for mode, rs, rsz in (("cbr", None, 8), ("vbr", rs_v, 0)):
+        cpu = [None if a is None else torch.from_numpy(a) for a in (res, sf, rs, hist, wts)]
+        gpu = [None if t is None else t.cuda() for t in cpu]
+        kw = dict(sfb=sfb, sff=sff, frames=frames, residual_size=rsz)
+        want = decode_chunks_packed(*cpu, fused=False, **kw)
+        fused_at, dequant_at = (0, 2) if mode == "cbr" else (1, 3)
+        for fused, name, launched in ((True, f"fused_decode_{mode}", (fused_at,)),
+                                      (False, f"dequant_{mode}", (dequant_at, 4))):
+            before = counts()
+            got = decode_chunks_packed(*gpu, fused=fused, **kw)
+            torch.cuda.synchronize()
+            after = counts()
+            want_counts = tuple(b + (i in launched) for i, b in enumerate(before))
+            check(after == want_counts, f"oversize {mode} rows fused={fused}: counts {before} -> {after}")
+            errs[name] = max(errs.get(name, 0), worst_of([got], [want], f"oversize {mode} rows fused={fused}"))
+            if not fused:
+                errs["lms_decode"] = max(errs.get("lms_decode", 0), errs[name])
+    log(f"[phase 2] CBR and VBR rows of up to {res.shape[1]} bytes (> {cuda_build.SMEM_LIMIT} of shared "
+        "memory): decoded by the fused kernels (rows streamed by tile) and by the two-kernel path, "
+        "all == plain")
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -928,13 +993,13 @@ def corpus_path(result, rng):
             check(counts["fused_decode_cbr"] == 0 and counts["fused_decode_vbr"] == 0,
                   f"{label}: a fused kernel was launched with the fused kernels off: {counts}")
         else:
-            # the fused CBR kernel takes every CBR group, the 255-channel one
-            # too; the VBR kernel stages a whole row, so a VBR group whose rows
-            # exceed its shared memory goes to the two-kernel path
+            # the fused kernels stream rows tile by tile, so they take every
+            # group, the 255-channel ones too: no two-kernel launch at all
             check(counts["fused_decode_cbr"] > 0 and counts["fused_decode_vbr"] > 0,
                   f"{label}: the default routing never took a fused kernel: {counts}")
-            check(counts["dequant_cbr"] == 0,
-                  f"{label}: a CBR group left the fused kernel on the default routing: {counts}")
+            for name in ("dequant_cbr", "dequant_vbr", "lms_decode"):
+                check(counts[name] == 0,
+                      f"{label}: a group left the fused kernels on the default routing: {counts}")
         log(f"[phase 4] decode_corpus, {'default routing' if env is None else 'SEA_FUSED_PROLOG=0 (two-kernel path)'}: "
             f"{len(files)} files, {samples / 1e6:.3f} Msamples in {times[label]:.4f} s "
             f"({samples / 1e6 / times[label]:.3f} Msamples/s), every file == decode_sea; "
@@ -1012,16 +1077,18 @@ def decode_at_main_shape(enc, result):
     n, _w, c = b.sf.shape
     f = header.frames_per_chunk
     ms, got = cuda_ms(lambda: decode_cbr_fused(*args, **kw), reps=20)
+    one_ms, _ = cuda_ms(lambda: decode_cbr_fused(*(a[:1] for a in args), **kw), reps=20)
     plain_ms, want = cuda_ms(lambda: decode_cbr_plain(*args, **kw), reps=1)
     err = worst_of([got], [want], "decode at the main-path shape")
-    log(f"[phase 5] decode kernel == plain at {[n, f, c]}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms")
+    log(f"[phase 5] decode kernel == plain at {[n, f, c]}: kernel {ms:.4f} ms (one chunk alone "
+        f"{one_ms:.4f} ms), plain {plain_ms:.1f} ms")
     return err, {
         "name": "fused_decode_cbr", "route": "cuda",
         "source": "sea_codec_torch/csrc/fused_decode_cbr.cu",
         "replaces": "sea_codec_tpu/ops/pallas_fused_decode.py:130",
         "launches": path_launches(result, "fused_decode_cbr")[0],
         "launches_by_path": path_launches(result, "fused_decode_cbr")[1],
-        "ms": ms, "plain_ms": plain_ms, "shape": [n, f, c],
+        "ms": ms, "ms_one_chunk": one_ms, "plain_ms": plain_ms, "shape": [n, f, c],
         "bytes": b.res_bytes.nbytes + b.sf.nbytes + 2 * b.hist.size * 4 + n * f * c * 2,
         "ops": tuple(n * f * c * k for k in DECODE_OPS_PER_SAMPLE),
         # every stream is independent and all are resident at once
@@ -1117,19 +1184,21 @@ def vbr_decode_at_main_shape(enc, result):
     kw = dict(sfb=b.scale_factor_bits, sff=b.scale_factor_frames, frames=f)
     n, w, c = b.sf.shape
     ms, got = cuda_ms(lambda: decode_vbr_fused(*args, **kw), reps=20)
+    one_ms, _ = cuda_ms(lambda: decode_vbr_fused(*(a[:1] for a in args), **kw), reps=20)
     plain_ms, want = cuda_ms(lambda: decode_vbr_plain(*args, **kw), reps=1)
     err = worst_of([got], [want], "VBR decode at the main-path shape")
-    log(f"[phase 5] VBR decode kernel == plain at {[n, f, c]}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms")
+    log(f"[phase 5] VBR decode kernel == plain at {[n, f, c]}: kernel {ms:.4f} ms (one chunk alone "
+        f"{one_ms:.4f} ms), plain {plain_ms:.1f} ms")
     return err, {
         "name": "fused_decode_vbr", "route": "cuda",
         "source": "sea_codec_torch/csrc/fused_decode_vbr.cu",
         "replaces": "sea_codec_tpu/ops/pallas_fused_decode.py:419",
         "launches": path_launches(result, "fused_decode_vbr")[0],
         "launches_by_path": path_launches(result, "fused_decode_vbr")[1],
-        "ms": ms, "plain_ms": plain_ms, "shape": [n, f, c],
+        "ms": ms, "ms_one_chunk": one_ms, "plain_ms": plain_ms, "shape": [n, f, c],
         "bytes": b.res_bytes.nbytes + b.sf.nbytes + b.rs.nbytes + 2 * b.hist.size * 4 + n * f * c * 2,
-        # per sample, plus the window's C sizes read for wsum and prefix
-        "ops": (n * f * c * VBR_DECODE_OPS_PER_SAMPLE[0] + n * w * c * c * VBR_DECODE_OPS_PER_SIZE,
+        # per sample, plus the prefix sums per (window, channel)
+        "ops": (n * f * c * VBR_DECODE_OPS_PER_SAMPLE[0] + n * w * c * VBR_DECODE_OPS_PER_ENTRY,
                 n * f * c * VBR_DECODE_OPS_PER_SAMPLE[1]),
         "chain_cycles": f * chain_cycles(DECODE_FRAME_CHAIN),
     }
@@ -1286,23 +1355,30 @@ def two_kernel_at_main_shape(enc, enc_vbr, result):
             "ops": tuple(n * f * c * k for k in ops),
             "chain_cycles": 0,  # no sample depends on another
         }))
+        lms_ms, pcm = cuda_ms(lambda: lms_decode(dq, hist, wts), reps=20)
+        dq1 = dq[:, :1].contiguous()
+        lms_one_ms, _ = cuda_ms(lambda: lms_decode(dq1, hist[:1], wts[:1]), reps=20)
+        lms_plain_ms, want_pcm = cuda_ms(lambda: lms_decode_plain(dq, hist, wts), reps=1)
+        err = worst_of([pcm], [want_pcm], f"LMS recurrence at the main-path shape, {mode} dq")
+        log(f"[phase 5] LMS recurrence kernel == plain at {[n, f, c]} on the {mode} dq stream: kernel "
+            f"{lms_ms:.4f} ms (one chunk alone {lms_one_ms:.4f} ms), plain {lms_plain_ms:.1f} ms")
         if mode == "cbr":
-            lms_ms, pcm = cuda_ms(lambda: lms_decode(dq, hist, wts), reps=20)
-            lms_plain_ms, want_pcm = cuda_ms(lambda: lms_decode_plain(dq, hist, wts), reps=1)
-            err = worst_of([pcm], [want_pcm], "LMS recurrence at the main-path shape")
-            log(f"[phase 5] LMS recurrence kernel == plain at {[n, f, c]}: kernel {lms_ms:.4f} ms, "
-                f"plain {lms_plain_ms:.1f} ms")
-            out.append((err, {
+            lms = {
                 "name": "lms_decode", "route": "cuda",
                 "source": "sea_codec_torch/csrc/lms_decode.cu",
                 "replaces": "sea_codec_tpu/ops/pallas_decode.py:92",
                 "launches": path_launches(result, "lms_decode")[0],
                 "launches_by_path": path_launches(result, "lms_decode")[1],
-                "ms": lms_ms, "plain_ms": lms_plain_ms, "shape": [n, f, c],
+                "ms": lms_ms, "ms_one_chunk": lms_one_ms, "plain_ms": lms_plain_ms, "shape": [n, f, c],
                 "bytes": 2 * n * f * c * 2 + 2 * b.hist.size * 4,
                 "ops": tuple(n * f * c * k for k in LMS_OPS_PER_SAMPLE),
                 "chain_cycles": f * chain_cycles(DECODE_FRAME_CHAIN),
-            }))
+            }
+            out.append((err, lms))
+        else:
+            lms["ms_vbr_dq"] = lms_ms
+            lms["ms_one_chunk_vbr_dq"] = lms_one_ms
+            out[-2] = (max(out[-2][0], err), lms)
         rkw = dict(kw, residual_size=b.residual_size)
         route = lambda fused: decode_chunks_packed(res, sf, rs, hist, wts, fused=fused, **rkw)
         turns = [cuda_ms(lambda: route(fused), reps=20) for fused in (True, False, False, True)]
@@ -1338,10 +1414,8 @@ def run(here):
     }
     errs["dequant_cbr"], errs["dequant_vbr"] = dequant_sweeps(rng)
     dequant_kernels_exhaustive()
-    over_fused, over = oversize_rows(rng)
-    errs["fused_decode_cbr"] = max(errs["fused_decode_cbr"], over_fused)
-    errs["dequant_cbr"] = max(errs["dequant_cbr"], over)
-    errs["lms_decode"] = max(errs["lms_decode"], over)
+    for name, err in oversize_rows(rng).items():
+        errs[name] = max(errs[name], err)
     fixtures(here, rng)
     pcm = music_signal(MAIN_FRAMES, seed=2024)
     c = MAIN_CHANNELS

@@ -7,9 +7,9 @@ file has an *identical* byte layout. Decode: the host slices the container
 bytes go to the device untouched, and each batch of chunks goes through
 ``ops.device_decode.decode_chunks_packed``: one fused kernel launch that
 unpacks, dequantizes and runs the LMS recurrence for all chunks x channels
-(``ops.fused_decode`` for CBR, ``ops.fused_decode_vbr`` for VBR), or, for
-rows too long for the fused kernels' shared memory, a dequant kernel and
-the recurrence kernel (``ops.dequant``, ``ops.lms_decode``). The ragged
+(``ops.fused_decode`` for CBR, ``ops.fused_decode_vbr`` for VBR), or, with
+the fused kernels off (``SEA_FUSED_PROLOG=0``), a dequant kernel and the
+recurrence kernel (``ops.dequant``, ``ops.lms_decode``). The ragged
 final chunk decodes the same way (``models.decoder``). ``decode_range``
 decodes only the chunks a frame range touches; ``decode_corpus`` merges the
 chunks of many files, ragged tails included, into shared batches.
@@ -310,8 +310,8 @@ def decode_corpus(
     like files decodes in a handful of launches. Ragged tail chunks ride the
     same batches: each tail becomes a full-chunk row (``_tail_packed_row``)
     in its file's group; tails with no matching group (tail-only files) form
-    a group of their own at the full-chunk width, which can exceed the fused
-    kernels' shared memory and then takes the two-kernel path
+    a group of their own at the full-chunk width (~490 KB a row at 255
+    channels), which the fused kernels stream tile by tile like any other
     (``ops.device_decode.decode_chunks_packed``). Launches do not wait for
     the card, so the host stages one batch while the card decodes the last.
 

@@ -13,39 +13,206 @@
 //   code  = rs bits, MSB first, at that offset
 //   dq    = +-floor(sfval[rs][sf]*curve(k) + 0.5), k = code >> 1,
 //           curve = 0.5 + k*stepfloor[rs] with the k==kmax / k==0 overrides
-//   pred  = (sum w_i*h_i) >> 13 (wrapping int32), recon = clamp_i16(pred+dq)
-//   w_i  += h_i < 0 ? -(dq >> 4) : dq >> 4, history shifts in recon.
+// then the LMS recurrence (decode_ring.cuh).
 //
 // What bounds it on this card: not bytes (a chunk reads ~rs/8 byte and writes
-// 2 bytes per sample). As in the CBR kernel, every stream is a chain of
-// `frames` dependent LMS steps, and with one block per chunk and C of its
-// lanes busy, instruction issue sets the pace before the chain does (see
-// PERF.md). Design: the CBR kernel's (fused_decode_cbr.cu): one block per
-// chunk, one thread per channel stream, the chunk's residual bytes (<= 65535
-// by the u16 chunk_size) staged in shared memory with a 2-byte pad and each
-// code read through a 16-bit window. What VBR adds: the chunk's size table
-// [W, C] and the scale-factor values of all sizes [9, 2^sfb] are staged too,
-// and each thread keeps a running window bit cursor. At each window it reads
-// the window's C sizes from shared memory for wsum and its own prefix: O(C)
-// reads per window, i.e. O(C/sff) per sample, small beside the sample work
-// at the usual C <= 8 and acceptable at 255. The window's curve constants
-// are selected by its size. The TPU's MXU one-hot word fetch, group/lane
-// layout and VMEM gates have no counterpart: every C 1..255, sfb 1..8 and
-// size mix 1..8 runs. Memory safety on malformed input: staged sizes are
-// clamped to 1..8, scale factors masked to 2^sfb, and byte indices clamped to
-// the staged row (the plain version clamps the same way).
+// 2 bytes per sample) but, as in the CBR kernel, one stream's chain of
+// `frames` dependent LMS steps. Design: the shared recurrence ring of
+// decode_ring.cuh (32 / C chunks a block, recurrence warps that walk only the
+// chain); only the producer differs from the CBR kernel's. For each tile the
+// producer warps first build, in shared memory, the addressing of the windows
+// the tile touches, per chunk of the block: a warp per chunk reads the
+// windows' sizes and scale factors (contiguous in device memory), scans the
+// sizes across channels (a segmented warp scan over the [windows, C] entries)
+// for each entry's prefix and each window's wsum, then scans fiw * wsum across
+// windows for their first bits, starting from the chunk's bit cursor, which
+// it carries from tile to tile. An entry holds (prefix | size << 16, the scale
+// factor's value), a window (start bit, wsum). Then each producer thread
+// takes groups of four consecutive samples of a chunk: their codes follow
+// each other in the bit stream, so it computes the group's first bit from
+// the tables, reads the <= 39 bits from there once, straight from device
+// memory, walks them with each sample's size, dequantizes with the size's
+// curve constants and stores the four values into the dq ring. No packed row is staged, so a row of any length
+// decodes; the tables fit shared memory for every sfb 1..8, sff 1..255 and
+// C 1..255 (ops/fused_decode_vbr.py sizes them as the launcher does). The
+// TPU's MXU one-hot word fetch, group/lane layout and VMEM gates have no
+// counterpart.
+//
+// Malformed input: sizes are clamped to 1..8 and scale factors masked to
+// 2^sfb as they are read, and bytes at or past the row's end read as zero,
+// so no read leaves the row; the plain version (decode_vbr_plain) cleans the
+// tables the same way and pads the row with zeros.
 //
 // Rounding: the two f32 steps of the dequant curve and of floor(x*c + 0.5)
 // are separate roundings in the table build; __fmul_rn/__fadd_rn keep nvcc
-// from contracting them into an FMA. The int32 dot wraps like the reference,
-// so it is computed in uint32 and reinterpreted.
+// from contracting them into an FMA.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "decode_ring.cuh"
+
 namespace {
 
-__global__ void fused_decode_vbr_kernel(
+using namespace decode_ring;
+
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// these producers set the kernel's pace: it keeps all fifteen producer warps
+// rather than leave the recurrence warp's scheduler to it (decode_ring.cuh)
+constexpr bool kIsolate = false;
+
+// Inclusive scan of v over the warp's lanes, each lane summing only the
+// lanes at most `span` below it: a segmented scan whose segment starts
+// `span` lanes down.
+__device__ __forceinline__ int warp_scan(int v, int lane, int span) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int u = __shfl_up_sync(kFull, v, off);
+    if (span >= off) v += u;
+  }
+  return v;
+}
+
+struct VbrProducer {
+  const Ring& r;
+  const uint8_t* __restrict__ res;
+  const uint8_t* __restrict__ sf;
+  const uint8_t* __restrict__ rs;
+  const float* sfv_s;    // [9, n_sf] scale-factor values by size
+  const float4* curve_s; // [9] (c0, stepfloor, endval, kmax as int bits) by size
+  int2* rows_s;          // [group, nwmax] (first bit, bits per frame) of a window
+  int2* ents_s;          // [group, nwmax, c] (prefix | size << 16, sf value bits)
+  int* cursor_s;         // [group] first bit of the tile's first window
+  int res_len, w, n_sf, sff, nwmax;
+  FastDiv div_c, div_sff;
+  // this tile's frames and its first frame's place in its window, set by prepare()
+  int nf, off;
+
+  __device__ void prepare(int i) {
+    const int c = r.c;
+    const int lane = r.ptid & 31, pwarp = r.ptid >> 5, pwarps = r.prod_threads >> 5;
+    if (i > 0) producer_sync(r.prod_threads);  // every sample of tile i-1 is in its slot
+    const int f0 = i * r.tile;
+    nf = min(r.tile, r.frames - f0);
+    const int wa = f0 / sff;  // the tile's windows wa .. wa + nw - 1
+    const int nw = (f0 + nf - 1) / sff - wa + 1;
+    off = f0 - wa * sff;
+    const int n_e = nw * c;
+    for (int k = pwarp; k < r.chunks; k += pwarps) {
+      const size_t tab = (static_cast<size_t>(r.chunk0 + k) * w + wa) * c;
+      int2* ents = ents_s + k * nwmax * c;
+      int2* rows = rows_s + k * nwmax;
+      // sizes and scale factors -> entries; the sizes' scan per window
+      int carry = 0;
+      for (int base = 0; base < n_e; base += 32) {
+        const int e = base + lane;
+        const int wl = div_c(e), ch = e - wl * c;
+        const bool valid = e < n_e;
+        const int size = valid ? min(max(static_cast<int>(rs[tab + e]), 1), 8) : 0;
+        const int code = valid ? sf[tab + e] & (n_sf - 1) : 0;
+        int incl = warp_scan(size, lane, min(lane, ch));
+        if (ch > lane) incl += carry;  // the window's row began in an earlier pass
+        if (valid) {
+          const float v = sfv_s[size * n_sf + code];
+          ents[e] = make_int2((incl - size) | (size << 16), __float_as_int(v));
+          if (ch == c - 1) rows[wl].y = incl;
+        }
+        carry = __shfl_sync(kFull, incl, 31);
+      }
+      __syncwarp();
+      // the windows' first bits: the cursor plus the scan of fiw * wsum
+      int run = cursor_s[k];
+      for (int base = 0; base < nw; base += 32) {
+        const int wl = base + lane;
+        const int v = wl < nw ? min(sff, r.frames - (wa + wl) * sff) * rows[wl].y : 0;
+        const int incl = warp_scan(v, lane, lane);
+        if (wl < nw) rows[wl].x = run + incl - v;
+        run += __shfl_sync(kFull, incl, 31);
+      }
+      __syncwarp();
+      // the next tile starts in this tile's last window or in the one after
+      if (lane == 0) cursor_s[k] = (f0 + r.tile) / sff - wa == nw ? run : rows[nw - 1].x;
+      __syncwarp();
+    }
+    producer_sync(r.prod_threads);  // the tables are complete
+  }
+
+  // A group is four consecutive samples of a chunk: their codes follow each
+  // other in the bit stream (in frame-major order every code starts where
+  // the last one ended, across windows too), so a group reads its <= 39
+  // bits once and walks them, each code's size and scale factor from its
+  // entry. kGroups groups a thread at a time, all their byte loads issued
+  // before any store.
+  __device__ void fill(int, int16_t* slot) {
+    constexpr int kGroups = 2;
+    const int c = r.c;
+    const int nsamp = nf * c;
+    const int groups = (nsamp + 3) / 4, total = r.chunks * groups;
+    const FastDiv div_g(groups);
+    for (int base = r.ptid; base < total; base += kGroups * r.prod_threads) {
+      unsigned long long buf[kGroups];
+      int k[kGroups], j0[kGroups], ch[kGroups], wl[kGroups], t[kGroups], pos[kGroups];
+#pragma unroll
+      for (int u = 0; u < kGroups; ++u) {
+        const int idx = min(base + u * r.prod_threads, total - 1);  // past the end: the last again, not stored
+        k[u] = div_g(idx);
+        j0[u] = 4 * (idx - k[u] * groups);
+        const int fl = div_c(j0[u]);
+        ch[u] = j0[u] - fl * c;
+        const int x = fl + off;
+        wl[u] = div_sff(x);
+        t[u] = x - wl[u] * sff;
+        const int2 row = rows_s[k[u] * nwmax + wl[u]];
+        const int bit = row.x + t[u] * row.y + (ents_s[(k[u] * nwmax + wl[u]) * c + ch[u]].x & 0xFFFF);
+        pos[u] = bit & 7;
+        const uint8_t* src = res + static_cast<size_t>(r.chunk0 + k[u]) * res_len + (bit >> 3);
+        const int room = res_len - (bit >> 3);  // bytes at or past the row's end read as zero
+        buf[u] = 0;
+#pragma unroll
+        for (int b = 0; b < 5; ++b)
+          buf[u] |= static_cast<unsigned long long>(b < room ? src[b] : 0) << (56 - 8 * b);
+      }
+#pragma unroll
+      for (int u = 0; u < kGroups; ++u) {
+        if (base + u * r.prod_threads >= total) break;
+        __align__(8) int16_t vals[4];
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          if (j0[u] + v >= nsamp) break;
+          const int2 ent = ents_s[(k[u] * nwmax + wl[u]) * c + ch[u]];
+          const int size = ent.x >> 16;
+          const int q = static_cast<int>(buf[u] >> (64 - pos[u] - size)) & ((1 << size) - 1);
+          pos[u] += size;
+          const float4 cv = curve_s[size];
+          const int kq = q >> 1;
+          float curve = __fadd_rn(0.5f, __fmul_rn(static_cast<float>(kq), cv.y));
+          if (kq == __float_as_int(cv.w)) curve = cv.z;
+          if (kq == 0) curve = cv.x;
+          const int dq_abs = static_cast<int>(floorf(__fadd_rn(__fmul_rn(__int_as_float(ent.y), curve), 0.5f)));
+          vals[v] = static_cast<int16_t>((q & 1) ? -dq_abs : dq_abs);
+          if (++ch[u] == c) {
+            ch[u] = 0;
+            if (++t[u] == sff) {
+              t[u] = 0;
+              ++wl[u];
+            }
+          }
+        }
+        int16_t* dst = slot + k[u] * r.sub + j0[u];
+        if (j0[u] + 4 <= nsamp) {
+          *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(vals);
+        } else {
+#pragma unroll
+          for (int v = 0; v < 4; ++v)
+            if (j0[u] + v < nsamp) dst[v] = vals[v];
+        }
+      }
+    }
+  }
+};
+
+__global__ void __launch_bounds__(kMaxWarps * 32) fused_decode_vbr_kernel(
     const uint8_t* __restrict__ res,    // [n, res_len] packed residuals
     const uint8_t* __restrict__ sf,     // [n, w, c] scale-factor codes
     const uint8_t* __restrict__ rs,     // [n, w, c] residual sizes 1..8
@@ -53,100 +220,62 @@ __global__ void fused_decode_vbr_kernel(
     const int32_t* __restrict__ wts,    // [n, c, 4] LMS entry weights
     const float* __restrict__ sfval,    // [9, n_sf] scale-factor values by rs
     const float* __restrict__ curve,    // [3, 9] c0, stepfloor, endval by rs
-    const int32_t* __restrict__ kmax_g, // [9] kmax by rs
+    const int32_t* __restrict__ kmax,   // [9] kmax by rs
     int16_t* __restrict__ out,          // [n, frames, c] PCM
-    int res_len, int c, int w, int frames, int n_sf, int sff) {
+    int n, int res_len, int c, int w, int frames, int n_sf, int sff, int tile,
+    int group, int rec_warps, int nwmax) {
+  // the rings (dq in the PCM ring's layout), then the curve constants, the
+  // scale-factor values, the windows, the entries and the cursors
   extern __shared__ __align__(16) unsigned char smem[];
-  float* sfv_s = reinterpret_cast<float*>(smem);  // [9 * n_sf]
-  float* curve_s = sfv_s + 9 * n_sf;              // [27]
-  int32_t* kmax_s = reinterpret_cast<int32_t*>(curve_s + 27);  // [9]
-  uint8_t* rs_s = reinterpret_cast<uint8_t*>(kmax_s + 9);      // [w * c]
-  uint8_t* bytes_s = rs_s + w * c;                              // [res_len + 2]
-  const int chunk = blockIdx.x;
-  const uint8_t* row = res + static_cast<size_t>(chunk) * res_len;
-  const uint8_t* rs_row = rs + static_cast<size_t>(chunk) * w * c;
-  for (int i = threadIdx.x; i < res_len; i += blockDim.x) bytes_s[i] = row[i];
-  if (threadIdx.x < 2) bytes_s[res_len + threadIdx.x] = 0;  // 16-bit window pad
-  for (int i = threadIdx.x; i < w * c; i += blockDim.x)
-    rs_s[i] = static_cast<uint8_t>(min(max(static_cast<int>(rs_row[i]), 1), 8));
+  unsigned char* rest;
+  const Ring r = make_ring(smem, n, c, frames, tile, group, group * (tile * c + kPad), rec_warps, kIsolate,
+                         &rest);
+  float4* curve_s = reinterpret_cast<float4*>(rest);
+  float* sfv_s = reinterpret_cast<float*>(curve_s + 9);
+  int2* rows_s = reinterpret_cast<int2*>(sfv_s + 9 * n_sf);
+  int2* ents_s = rows_s + group * nwmax;
+  int* cursor_s = reinterpret_cast<int*>(ents_s + group * nwmax * c);
   for (int i = threadIdx.x; i < 9 * n_sf; i += blockDim.x) sfv_s[i] = sfval[i];
-  for (int i = threadIdx.x; i < 27; i += blockDim.x) curve_s[i] = curve[i];
-  for (int i = threadIdx.x; i < 9; i += blockDim.x) kmax_s[i] = kmax_g[i];
+  if (threadIdx.x < 9) {
+    const int i = threadIdx.x;
+    curve_s[i] = make_float4(curve[i], curve[9 + i], curve[18 + i], __int_as_float(kmax[i]));
+  }
+  if (threadIdx.x < group) cursor_s[threadIdx.x] = 0;
   __syncthreads();
-
-  const int ch = threadIdx.x;
-  if (ch >= c) return;
-  const size_t st = (static_cast<size_t>(chunk) * c + ch) * 4;
-  int32_t h0 = hist[st], h1 = hist[st + 1], h2 = hist[st + 2], h3 = hist[st + 3];
-  int32_t w0 = wts[st], w1 = wts[st + 1], w2 = wts[st + 2], w3 = wts[st + 3];
-  const uint8_t* sf_row = sf + static_cast<size_t>(chunk) * w * c + ch;
-  int16_t* out_row = out + static_cast<size_t>(chunk) * frames * c + ch;
-  int cursor = 0;  // bit offset of the window's first code
-  for (int wi = 0; wi < w; ++wi) {
-    const uint8_t* sizes = rs_s + wi * c;
-    int wsum = 0, prefix = 0;
-    for (int j = 0; j < c; ++j) {
-      const int r = sizes[j];
-      wsum += r;
-      prefix += j < ch ? r : 0;
-    }
-    const int rsw = sizes[ch];
-    const int mask = (1 << rsw) - 1;
-    const float sfv = sfv_s[rsw * n_sf + (sf_row[wi * c] & (n_sf - 1))];
-    const float c0 = curve_s[rsw], stepf = curve_s[9 + rsw], endv = curve_s[18 + rsw];
-    const int kmax = kmax_s[rsw];
-    const int fw = min(sff, frames - wi * sff);
-    int bit = cursor + prefix;
-    for (int t = 0; t < fw; ++t, bit += wsum) {
-      const int idx = min(bit >> 3, res_len);
-      const int u16 = (static_cast<int>(bytes_s[idx]) << 8) | bytes_s[idx + 1];
-      const int q = (u16 >> (16 - (bit & 7) - rsw)) & mask;
-      const int k = q >> 1;
-      float cv = __fadd_rn(0.5f, __fmul_rn(static_cast<float>(k), stepf));
-      if (k == kmax) cv = endv;
-      if (k == 0) cv = c0;
-      const int dq_abs = static_cast<int>(floorf(__fadd_rn(__fmul_rn(sfv, cv), 0.5f)));
-      const int32_t dq = (q & 1) ? -dq_abs : dq_abs;
-
-      const uint32_t dot = static_cast<uint32_t>(w0) * static_cast<uint32_t>(h0) +
-                           static_cast<uint32_t>(w1) * static_cast<uint32_t>(h1) +
-                           static_cast<uint32_t>(w2) * static_cast<uint32_t>(h2) +
-                           static_cast<uint32_t>(w3) * static_cast<uint32_t>(h3);
-      const int32_t pred = static_cast<int32_t>(dot) >> 13;
-      const int32_t recon = min(max(pred + dq, -32768), 32767);
-      out_row[static_cast<size_t>(wi * sff + t) * c] = static_cast<int16_t>(recon);
-      const uint32_t delta = static_cast<uint32_t>(dq >> 4);
-      w0 = static_cast<int32_t>(static_cast<uint32_t>(w0) + (h0 < 0 ? 0u - delta : delta));
-      w1 = static_cast<int32_t>(static_cast<uint32_t>(w1) + (h1 < 0 ? 0u - delta : delta));
-      w2 = static_cast<int32_t>(static_cast<uint32_t>(w2) + (h2 < 0 ? 0u - delta : delta));
-      w3 = static_cast<int32_t>(static_cast<uint32_t>(w3) + (h3 < 0 ? 0u - delta : delta));
-      h0 = h1;
-      h1 = h2;
-      h2 = h3;
-      h3 = recon;
-    }
-    cursor += fw * wsum;
+  if (r.ptid >= 0) {
+    VbrProducer p{r, res, sf, rs, sfv_s, curve_s, rows_s, ents_s, cursor_s, res_len, w, n_sf, sff,
+                  nwmax, FastDiv(c), FastDiv(sff), 0, 0};
+    produce(r, out, p);
+  } else if (threadIdx.x < r.rec_threads) {
+    recurrence(r, hist, wts, r.sub, c);
   }
 }
 
 }  // namespace
 
+// `tile` (frames per tile, a multiple of 32), `group` (chunks per block) and
+// `nwmax` (windows a tile can touch) come from the wrapper, which sizes the
+// shared memory by them too.
 extern "C" int sea_fused_decode_vbr(
     const void* res, const void* sf, const void* rs, const void* hist,
     const void* wts, const void* sfval, const void* curve, const void* kmax,
     void* out, int n, int res_len, int c, int w, int frames, int n_sf, int sff,
-    void* stream) {
-  const int threads = ((c + 31) / 32) * 32;
-  const size_t smem = sizeof(float) * (9 * n_sf + 27 + 9) +
-                      static_cast<size_t>(w) * c + res_len + 2;
+    int tile, int group, int nwmax, void* stream) {
+  const int rec_warps = (group * c + 31) / 32;
+  const int threads = 32 * block_warps(rec_warps, producer_warps(group * c, rec_warps, kIsolate), kIsolate);
+  const size_t ring = kBarrierBytes + 2 * kSlots * static_cast<size_t>(group) * (tile * c + kPad) * sizeof(int16_t);
+  const size_t smem = ring + sizeof(float4) * 9 + sizeof(float) * 9 * n_sf +
+                      sizeof(int2) * static_cast<size_t>(group) * nwmax * (1 + c) + sizeof(int) * group;
   cudaFuncSetAttribute(fused_decode_vbr_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem));
-  fused_decode_vbr_kernel<<<n, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const int blocks = (n + group - 1) / group;
+  fused_decode_vbr_kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(res), static_cast<const uint8_t*>(sf),
       static_cast<const uint8_t*>(rs), static_cast<const int32_t*>(hist),
       static_cast<const int32_t*>(wts), static_cast<const float*>(sfval),
       static_cast<const float*>(curve), static_cast<const int32_t*>(kmax),
-      static_cast<int16_t*>(out), res_len, c, w, frames, n_sf, sff);
+      static_cast<int16_t*>(out), n, res_len, c, w, frames, n_sf, sff, tile, group,
+      rec_warps, nwmax);
   return static_cast<int>(cudaGetLastError());
 }

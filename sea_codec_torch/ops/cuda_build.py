@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C launcher and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``build/sea_codec_torch/`` beside the
 package, at first use, then loaded with ``ctypes``. The library file name
-carries a hash of the source, so an edited kernel is rebuilt and a stale
-build is never loaded. ``build_all`` starts one ``nvcc`` per source at once.
+carries a hash of the source and of the shared headers (``csrc/*.cuh``), so
+an edited kernel or header is rebuilt and a stale build is never loaded.
+``build_all`` starts one ``nvcc`` per source at once.
 """
 
 from __future__ import annotations
@@ -44,7 +45,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -25,7 +25,7 @@ import ctypes
 import torch
 
 from . import cuda_build, tables
-from .device_decode import dequant_codes, unpack_const, unpack_var
+from .device_decode import clean_vbr_tables, dequant_codes, unpack_const, unpack_var
 
 cbr_launches = 0
 vbr_launches = 0
@@ -40,15 +40,9 @@ def unpack_dequant_cbr_plain(res_bytes, sf_codes, *, sfb, rs, sff, frames):
     return dequant_codes(codes, sf_codes, sfb, sff, rs).permute(1, 0, 2).contiguous()
 
 
-def _clean_vbr(sf_codes, rs, sfb):
-    """Sizes clamped to 1..8 and scale factors masked to 2^sfb, as the VBR
-    kernels read them: malformed tables decode the same in every version."""
-    return sf_codes & ((1 << sfb) - 1), rs.clamp(1, 8)
-
-
 def unpack_dequant_vbr_plain(res_bytes, sf_codes, rs, *, sfb, sff, frames):
     """Plain PyTorch version of the VBR kernel: same inputs, same output."""
-    sf_codes, rs = _clean_vbr(sf_codes, rs, sfb)
+    sf_codes, rs = clean_vbr_tables(sf_codes, rs, sfb)
     codes = unpack_var(res_bytes, rs, sff, frames)
     return dequant_codes(codes, sf_codes, sfb, sff, rs).permute(1, 0, 2).contiguous()
 

@@ -12,11 +12,11 @@ The first half of this module is the plain PyTorch form of that pipeline
 (VBR) residual sizes. The second half holds the two decode entries, named as
 in the JAX package: ``decode_chunks`` on unpacked codes, and
 ``decode_chunks_packed``, the router from packed chunk rows to the kernels.
-On a CUDA tensor the router takes the fused kernel
-(``ops.fused_decode.decode_cbr_fused``, ``ops.fused_decode_vbr.decode_vbr_fused``)
-when the row fits its shared memory, else the two-kernel path (a dequant
-prolog of ``ops.dequant``, then ``ops.lms_decode``), which stages nothing per
-chunk and takes a row of any length.
+By default the router takes the fused kernel
+(``ops.fused_decode.decode_cbr_fused``, ``ops.fused_decode_vbr.decode_vbr_fused``),
+which stages no row and takes every legal geometry; with the fused kernels
+off it takes the two-kernel path (a dequant prolog of ``ops.dequant``, then
+``ops.lms_decode``).
 """
 
 from __future__ import annotations
@@ -135,6 +135,14 @@ def unpack_var(data: torch.Tensor, rs: torch.Tensor, sff: int, frames: int) -> t
     return codes.to(torch.uint8)
 
 
+def clean_vbr_tables(sf_codes: torch.Tensor, rs: torch.Tensor, sfb: int):
+    """(scale factors masked to 2^sfb, sizes clamped to 1..8): the VBR
+    tables as the VBR kernels read them, so that malformed tables decode the
+    same in every version (``parse_full_chunks`` refuses sizes outside 1..8;
+    a direct call of a decode does not)."""
+    return sf_codes & ((1 << sfb) - 1), rs.clamp(1, 8)
+
+
 def decode_chunks_fn(
     codes: torch.Tensor,  # uint8[N, F, C]
     sf_codes: torch.Tensor,  # uint8[N, W, C]
@@ -184,28 +192,29 @@ def decode_chunks_packed(
 ) -> torch.Tensor:
     """Decode packed chunk rows -> int16[N, frames, C].
 
-    With ``fused`` true the fused kernel decodes the batch when a row fits
-    its shared memory (``fused_decode.fused_cbr_supported``,
-    ``fused_decode_vbr.fused_vbr_supported``); otherwise, and always with
-    ``fused`` false, the two-kernel path does. ``fused=None`` reads the
+    With ``fused`` true the fused kernel decodes the batch: it streams a
+    row tile by tile, so it takes rows of any length and every legal
+    geometry (sfb 1..8, C 1..255, for VBR sff 1..255), and refuses the rest
+    (``fused_decode.fused_cbr_supported``,
+    ``fused_decode_vbr.fused_vbr_supported``). With ``fused`` false the
+    two-kernel path does. ``fused=None`` reads the
     ``SEA_FUSED_PROLOG`` environment variable at each call (``0`` turns the
     fused kernels off), as the JAX package does. Every route runs its
     kernels on CUDA tensors and their plain versions on CPU tensors."""
     # imported here: these modules build on this module's plain functions
     from . import dequant
-    from .fused_decode import decode_cbr_fused, fused_cbr_supported
-    from .fused_decode_vbr import decode_vbr_fused, fused_vbr_supported
+    from .fused_decode import decode_cbr_fused
+    from .fused_decode_vbr import decode_vbr_fused
 
     if fused is None:
         fused = os.environ.get("SEA_FUSED_PROLOG") != "0"
-    _n, w, c = sf_codes.shape
     kw = dict(sfb=sfb, sff=sff, frames=frames)
     if residual_size:
-        if fused and fused_cbr_supported(sfb, residual_size, frames, c):
+        if fused:
             return decode_cbr_fused(res_bytes, sf_codes, hist0, wts0, rs=residual_size, **kw)
         dq = dequant.unpack_dequant_cbr(res_bytes, sf_codes, rs=residual_size, **kw)
     else:
-        if fused and fused_vbr_supported(sfb, w, c, res_bytes.shape[1]):
+        if fused:
             return decode_vbr_fused(res_bytes, sf_codes, rs, hist0, wts0, **kw)
         dq = dequant.unpack_dequant_vbr(res_bytes, sf_codes, rs, **kw)
     return lms_decode(dq, hist0, wts0)

@@ -4,16 +4,14 @@ Replaces the TPU kernel ``sea_codec_tpu/ops/pallas_fused_decode.py``
 ``decode_cbr_fused_single``. On a CUDA tensor, ``decode_cbr_fused`` launches
 ``csrc/fused_decode_cbr.cu``. What bounds it is one stream's chain of
 ``frames`` dependent LMS steps, walked by a thread that issues in order, so
-everything that is not the chain runs on other warps: a block decodes
-``chunks_per_block(C)`` chunks (one warp of (chunk, channel) streams up to 16
-channels) with recurrence warps, one thread per stream, that walk only the
-chain, and producer warps (one per two streams) that unpack and dequantize
-tiles of ``tile_frames(C)`` frames straight from device memory into a
-shared-memory ring of dq values and copy finished PCM tiles out in 8-byte
-lines; the two meet at mbarriers (see the source note there). A block stages
-no packed row, so rows of any length decode. On a CPU tensor it runs the
-plain PyTorch version, ``decode_cbr_plain``. ``launches`` counts kernel
-launches.
+everything that is not the chain runs on other warps: the shared recurrence
+ring of ``csrc/decode_ring.cuh`` (``ops.decode_ring``: ``chunks_per_block(C)``
+chunks a block, recurrence warps that walk only the chain, producer warps,
+mbarriers between them), whose producers here unpack and dequantize tiles of
+``tile_frames(C)`` frames straight from device memory into the dq ring. A
+block stages no packed row, so rows of any length decode. On a CPU tensor
+it runs the plain PyTorch version, ``decode_cbr_plain``. ``launches`` counts
+kernel launches.
 """
 
 from __future__ import annotations
@@ -22,7 +20,8 @@ import ctypes
 
 import torch
 
-from . import cuda_build, tables
+from . import cuda_build, decode_ring, tables
+from .decode_ring import chunks_per_block, tile_frames
 from .device_decode import decode_chunks_fn, unpack_const
 
 launches = 0
@@ -35,28 +34,14 @@ def decode_cbr_plain(res_bytes, sf_codes, hist0, wts0, *, sfb, rs, sff, frames):
     return decode_chunks_fn(codes, sf_codes, hist0, wts0, sfb, sff, rs)
 
 
-def tile_frames(c: int) -> int:
-    """Frames in one tile of the kernel's rings: a multiple of the 32 frames
-    a recurrence thread holds in registers, about 1,024 samples for few
-    channels and 32 frames from 32 channels on."""
-    return 32 * min(8, max(1, -(-1024 // (32 * c))))
-
-
-def chunks_per_block(c: int) -> int:
-    """Chunks one block decodes: as many as fill one warp with (chunk,
-    channel) streams, one from 17 channels on."""
-    return max(1, 32 // c)
-
-
 def _smem_bytes(sfb: int, c: int) -> int:
     """Dynamic shared memory of one block (layout in fused_decode_cbr.cu):
-    two slots of dq and two of PCM, each ``chunks_per_block`` sub-tiles of
-    int16[tile, C] plus 4 of padding; the scale-factor values; 8 mbarriers."""
-    slot = chunks_per_block(c) * (tile_frames(c) * c + 4) * 2
-    return 2 * 2 * slot + 4 * (1 << sfb) + 8 * 8
+    the barriers, a dq ring laid out like the PCM ring, the PCM ring, the
+    scale-factor values."""
+    return decode_ring.BARRIER_BYTES + 2 * decode_ring.pcm_ring_bytes(c) + 4 * (1 << sfb)
 
 
-def fused_cbr_supported(sfb: int, rs: int, frames: int, c: int) -> bool:
+def fused_cbr_supported(sfb: int, c: int) -> bool:
     """Whether the kernel can take chunks of this geometry. The kernel
     streams the packed row tile by tile, so neither the row's length nor
     ``rs`` bounds it: the rings fit for every legal (sfb, C)."""
@@ -84,7 +69,7 @@ def _check_inputs(res_bytes, sf_codes, hist0, wts0, sfb, rs, sff, frames):
             raise ValueError(f"{name} is on {t.device}, sf_codes on {sf_codes.device}")
     if hist0.shape != (n, c, 4) or wts0.shape != (n, c, 4):
         raise ValueError("hist0/wts0 must be [N, C, 4]")
-    if not fused_cbr_supported(sfb, rs, frames, c):
+    if not fused_cbr_supported(sfb, c):
         raise ValueError(f"sfb={sfb} c={c} exceeds the kernel's shared memory")
     return n, w, c, need
 

@@ -2,10 +2,15 @@
 
 Replaces the TPU kernel ``sea_codec_tpu/ops/pallas_fused_decode.py``
 ``decode_vbr_fused_single``. On a CUDA tensor, ``decode_vbr_fused`` launches
-``csrc/fused_decode_vbr.cu`` (one block per chunk, one thread per channel
-stream, a running bit cursor per window; see the source note there). On a
-CPU tensor it runs the plain PyTorch version, ``decode_vbr_plain``.
-``launches`` counts kernel launches.
+``csrc/fused_decode_vbr.cu``: the shared recurrence ring of
+``csrc/decode_ring.cuh`` (``ops.decode_ring``), whose producers build, for
+each tile, the bit addressing of the windows it touches (each window's first
+bit from a bit cursor carried from tile to tile, its bits per frame, each
+channel's prefix) and then unpack and dequantize the tile's codes straight
+from device memory (see the source note there). No packed row is staged, so
+the gate ``fused_vbr_supported`` depends on (sfb, sff, C) alone and is open
+for every legal one. On a CPU tensor it runs the plain PyTorch version,
+``decode_vbr_plain``. ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -14,38 +19,64 @@ import ctypes
 
 import torch
 
-from . import cuda_build, tables
-from .device_decode import decode_chunks_fn, unpack_var
+from . import cuda_build, decode_ring, tables
+from .decode_ring import chunks_per_block, tile_frames
+from .device_decode import clean_vbr_tables, decode_chunks_fn, unpack_var
 
 launches = 0
 
+_INT32_BITS = (1 << 31) - 1
+
 
 def decode_vbr_plain(res_bytes, sf_codes, rs, hist0, wts0, *, sfb, sff, frames):
-    """Plain PyTorch version of the kernel: same inputs, same output."""
+    """Plain PyTorch version of the kernel: same inputs, same output (sizes
+    clamped to 1..8 and scale factors masked to 2^sfb, as the kernel reads
+    them)."""
+    sf_codes, rs = clean_vbr_tables(sf_codes, rs, sfb)
     codes = unpack_var(res_bytes, rs, sff, frames)
     return decode_chunks_fn(codes, sf_codes, hist0, wts0, sfb, sff, rs)
 
 
-def fused_vbr_supported(sfb: int, w: int, c: int, res_len: int) -> bool:
-    """Whether the kernel can take chunks of this geometry: a block stages
-    every size's tables, the chunk's size table and one whole packed row in
-    shared memory."""
-    return 4 * (9 * (1 << sfb) + 36) + w * c + res_len + 2 <= cuda_build.SMEM_LIMIT
+def windows_per_tile(sff: int, c: int) -> int:
+    """The most windows of ``sff`` frames that one tile can touch."""
+    return (tile_frames(c) + sff - 2) // sff + 1
+
+
+def _smem_bytes(sfb: int, sff: int, c: int) -> int:
+    """Dynamic shared memory of one block (layout in fused_decode_vbr.cu):
+    the barriers, a dq ring laid out like the PCM ring, the PCM ring, the
+    curve constants of the nine sizes (16 bytes each), the scale-factor
+    values of every size, and per chunk the windows (8 bytes each), their
+    entries (8 bytes a channel) and a bit cursor."""
+    g = chunks_per_block(c)
+    nw = windows_per_tile(sff, c)
+    return (decode_ring.BARRIER_BYTES + 2 * decode_ring.pcm_ring_bytes(c) + 16 * 9
+            + 4 * 9 * (1 << sfb) + 8 * g * nw * (1 + c) + 4 * g)
+
+
+def fused_vbr_supported(sfb: int, sff: int, c: int) -> bool:
+    """Whether the kernel can take chunks of this geometry. Neither the row's
+    length nor the number of windows bounds it: the rings and a tile's
+    window tables fit for every legal (sfb, sff, C)."""
+    return (1 <= sfb <= 8 and 1 <= sff <= 255 and 1 <= c <= 255
+            and _smem_bytes(sfb, sff, c) <= cuda_build.SMEM_LIMIT)
 
 
 def decode_vbr_fused(res_bytes, sf_codes, rs, hist0, wts0, *, sfb, sff, frames):
     """Decode N VBR chunks of ``frames`` frames each -> int16[N, frames, C].
 
-    ``res_bytes`` uint8[N, B], each row holding at least the bits its size
-    table implies; ``sf_codes`` and ``rs`` uint8[N, ceil(frames/sff), C]
-    (sizes 1..8); ``hist0``/``wts0`` int32[N, C, 4]."""
+    ``res_bytes`` uint8[N, B], each row holding the bits its size table
+    implies (bytes past the row read as zero); ``sf_codes`` and ``rs``
+    uint8[N, ceil(frames/sff), C]; ``hist0``/``wts0`` int32[N, C, 4]."""
     global launches
     n, w, c = sf_codes.shape
     device = sf_codes.device
-    if not (1 <= sfb <= 8 and sff >= 1 and 1 <= c <= 255 and frames >= 1):
+    if not (fused_vbr_supported(sfb, sff, c) and frames >= 1):
         raise ValueError(f"bad decode config sfb={sfb} sff={sff} c={c} frames={frames}")
     if w != -(-frames // sff):
         raise ValueError(f"sf has {w} windows, {frames} frames need {-(-frames // sff)}")
+    if frames * c * 8 > _INT32_BITS:
+        raise ValueError(f"{frames} frames x {c} channels exceed the kernel's int32 bit offsets")
     if res_bytes.dim() != 2 or res_bytes.shape[0] != n:
         raise ValueError(f"res_bytes must be [{n}, B], got {tuple(res_bytes.shape)}")
     for name, t, dtype, shape in (
@@ -57,13 +88,6 @@ def decode_vbr_fused(res_bytes, sf_codes, rs, hist0, wts0, *, sfb, sff, frames):
     ):
         if t.dtype != dtype or t.device != device or t.shape != shape:
             raise ValueError(f"{name} must be {dtype}{list(shape)} on {device}")
-    s = 1 << sfb
-    b = res_bytes.shape[1]
-    if not fused_vbr_supported(sfb, w, c, b):
-        raise ValueError(
-            f"chunk of {b} residual bytes and {w}x{c} sizes exceeds shared memory; "
-            "device_decode.decode_chunks_packed routes such chunks to the two-kernel path"
-        )
     if device.type == "cpu":
         return decode_vbr_plain(
             res_bytes, sf_codes, rs, hist0, wts0, sfb=sfb, sff=sff, frames=frames
@@ -82,7 +106,8 @@ def decode_vbr_fused(res_bytes, sf_codes, rs, hist0, wts0, *, sfb, sff, frames):
         rc = fn(
             res_bytes.data_ptr(), sf_codes.data_ptr(), rs.data_ptr(), hist0.data_ptr(),
             wts0.data_ptr(), sfval.data_ptr(), curve.data_ptr(), ints.data_ptr(),
-            out.data_ptr(), n, b, c, w, frames, s, sff, stream,
+            out.data_ptr(), n, res_bytes.shape[1], c, w, frames, 1 << sfb, sff,
+            tile_frames(c), chunks_per_block(c), windows_per_tile(sff, c), stream,
         )
     cuda_build.check(rc, "sea_fused_decode_vbr")
     launches += 1
@@ -92,6 +117,6 @@ def decode_vbr_fused(res_bytes, sf_codes, rs, hist0, wts0, *, sfb, sff, frames):
 def _launcher():
     fn = cuda_build.load("fused_decode_vbr").sea_fused_decode_vbr
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 9 + [i] * 7 + [p]
+    fn.argtypes = [p] * 9 + [i] * 10 + [p]
     fn.restype = ctypes.c_int
     return fn

@@ -4,14 +4,18 @@ Replaces the TPU kernel ``sea_codec_tpu/ops/pallas_decode.py``
 ``lms_decode_lanes`` (and its interpret-mode twin). It is the second half of
 the two-kernel decode (``ops.dequant`` writes the stream) and the whole
 device part of ``device_decode.decode_chunks`` on unpacked codes. On a CUDA
-tensor, ``lms_decode`` launches ``csrc/lms_decode.cu`` (one thread per
-(chunk, channel) stream, the state in registers; see the source note
-there). On a CPU tensor it runs the plain PyTorch version,
+tensor, ``lms_decode`` launches ``csrc/lms_decode.cu``: the shared
+recurrence ring of ``csrc/decode_ring.cuh`` (``ops.decode_ring``: a block of
+``chunks_per_block(C)`` whole chunks, recurrence warps with one thread per
+(chunk, channel) stream that walk only the chain), whose producer warps copy
+tiles of the block's dq columns into the ring and PCM tiles out (see the
+source note there). On a CPU tensor it runs the plain PyTorch version,
 ``lms_decode_plain``. ``launches`` counts kernel launches.
 
 The stream is time-major, ``dq`` int16[F, N, C]: all streams' values of one
-frame lie side by side, which is what lets a warp load them in one read. The
-PCM comes back as int16[N, F, C], the layout of every decode entry.
+frame lie side by side, so a block's streams are contiguous columns and a
+tile of them is a copy of whole rows. The PCM comes back as int16[N, F, C],
+the layout of every decode entry.
 """
 
 from __future__ import annotations
@@ -20,9 +24,13 @@ import ctypes
 
 import torch
 
-from . import cuda_build, lms
+from . import cuda_build, decode_ring, lms
 
 launches = 0
+
+# A block holds every channel of a chunk, one recurrence thread each, and
+# keeps at least one producer warp: 480 channels (the format's stop at 255).
+MAX_CHANNELS = 32 * (decode_ring.MAX_WARPS - 1)
 
 
 def lms_decode_plain(dq, hist0, wts0):
@@ -43,8 +51,8 @@ def lms_decode_plain(dq, hist0, wts0):
 
 def lms_decode(dq, hist0, wts0):
     """Run the recurrence over ``dq`` int16[F, N, C] from the entry state
-    ``hist0``/``wts0`` int32[N, C, 4] -> int16[N, F, C]. Any N, F, C >= 1
-    (N = 0 gives an empty result)."""
+    ``hist0``/``wts0`` int32[N, C, 4] -> int16[N, F, C]. Any N, F >= 1 and
+    1 <= C <= ``MAX_CHANNELS`` (N = 0 gives an empty result)."""
     global launches
     if dq.dim() != 3 or dq.dtype != torch.int16:
         raise TypeError(f"dq must be int16[F, N, C], got {dq.dtype}{list(dq.shape)}")
@@ -53,8 +61,8 @@ def lms_decode(dq, hist0, wts0):
     for name, t in (("hist0", hist0), ("wts0", wts0)):
         if t.dtype != torch.int32 or t.device != device or t.shape != (n, c, 4):
             raise ValueError(f"{name} must be int32[{n}, {c}, 4] on {device}")
-    if f < 1 or c < 1:
-        raise ValueError(f"dq needs at least one frame and one channel, got {list(dq.shape)}")
+    if f < 1 or not 1 <= c <= MAX_CHANNELS:
+        raise ValueError(f"dq needs at least one frame and 1..{MAX_CHANNELS} channels, got {list(dq.shape)}")
     if device.type == "cpu":
         return lms_decode_plain(dq, hist0, wts0)
     if device.type != "cuda":
@@ -68,8 +76,8 @@ def lms_decode(dq, hist0, wts0):
     fn = _launcher()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(dq.data_ptr(), hist0.data_ptr(), wts0.data_ptr(), out.data_ptr(),
-                n * c, f, c, stream)
+        rc = fn(dq.data_ptr(), hist0.data_ptr(), wts0.data_ptr(), out.data_ptr(), n, f, c,
+                decode_ring.tile_frames(c), decode_ring.chunks_per_block(c), stream)
     cuda_build.check(rc, "sea_lms_decode")
     launches += 1
     return out
@@ -78,6 +86,6 @@ def lms_decode(dq, hist0, wts0):
 def _launcher():
     fn = cuda_build.load("lms_decode").sea_lms_decode
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, i, i, i, p]
+    fn.argtypes = [p, p, p, p, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn

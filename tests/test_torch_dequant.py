@@ -197,6 +197,52 @@ def test_router_reads_env_at_each_call(monkeypatch):
     assert seen == [1] and torch.equal(a, b)
 
 
+def test_router_sends_long_vbr_rows_to_the_fused_kernel(monkeypatch):
+    """VBR rows wider than a block's shared memory (255 channels, 1,000
+    frames at sizes 7-8: ~250 KB a row) go to the fused kernel under the
+    default routing, which streams them, and to the two-kernel path only
+    with the fused kernels off; both give the same PCM."""
+    from sea_codec_torch.ops.cuda_build import SMEM_LIMIT
+
+    rng = np.random.default_rng(29)
+    n, frames, c, sff, sfb = 2, 1000, 255, 20, 4
+    res, sf, rs, hist, wts = _vbr_batch(rng, n, frames, c, sff, sfb)
+    rs = np.where(rng.random(rs.shape) < 0.05, 7, 8).astype(np.uint8)
+    res = rng.integers(0, 256, (n, frames * c), dtype=np.uint8)
+    assert res.shape[1] > SMEM_LIMIT
+    calls = []
+    for mod, name in ((fused_decode_vbr, "decode_vbr_fused"), (dequant, "unpack_dequant_vbr")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(
+            mod, name, lambda *a, _real=real, _name=name, **k: (calls.append(_name), _real(*a, **k))[1]
+        )
+    kw = dict(sfb=sfb, sff=sff, frames=frames, residual_size=0)
+    monkeypatch.delenv("SEA_FUSED_PROLOG", raising=False)
+    fused = decode_chunks_packed(*_t(res, sf, rs, hist, wts), **kw)
+    assert calls == ["decode_vbr_fused"]
+    calls.clear()
+    monkeypatch.setenv("SEA_FUSED_PROLOG", "0")
+    two = decode_chunks_packed(*_t(res, sf, rs, hist, wts), **kw)
+    assert calls == ["unpack_dequant_vbr"]
+    assert torch.equal(fused, two)
+
+
+@pytest.mark.parametrize("vbr", [False, True])
+def test_router_leaves_an_illegal_geometry_to_the_fused_wrapper(vbr, monkeypatch):
+    """The router routes on ``fused`` alone: a geometry outside the format
+    (256 channels) reaches the fused wrapper, which refuses it, instead of
+    slipping down the two-kernel path."""
+    rng = np.random.default_rng(31)
+    n, frames, c, sff, sfb = 1, 20, 256, 20, 4
+    res, sf, rs, hist, wts = _vbr_batch(rng, n, frames, c, sff, sfb)
+    if not vbr:
+        res = rng.integers(0, 256, (n, frames * c * 3 // 8), dtype=np.uint8)
+    monkeypatch.delenv("SEA_FUSED_PROLOG", raising=False)
+    with pytest.raises(ValueError, match="c=256|exceeds"):
+        decode_chunks_packed(*_t(res, sf, rs, hist, wts), sfb=sfb, sff=sff, frames=frames,
+                             residual_size=0 if vbr else 3)
+
+
 @pytest.mark.parametrize("sfb", [1, 4, 8])
 def test_dequant_matches_table_for_every_code(sfb):
     """Frame 0 of streams enumerating every (sf, code): the CBR prolog, and

@@ -95,30 +95,76 @@ def test_fused_gates_decide_from_the_geometry():
 
     from sea_codec_torch.ops import fused_decode
 
-    assert fused_cbr_supported(4, 3, 5120, 2)
-    assert fused_cbr_supported(8, 8, 5120, 6)  # a 30 KB row
-    # the CBR kernel streams a row tile by tile: no row is too long for it
-    assert fused_cbr_supported(4, 3, 5120, 255)  # ~490 KB: a padded tail-only file
-    assert fused_cbr_supported(4, 8, 65535, 1) and fused_cbr_supported(8, 8, 65535, 255)
-    assert not fused_cbr_supported(4, 3, 5120, 256) and not fused_cbr_supported(9, 3, 5120, 2)
+    # the CBR kernel streams a row tile by tile: no row is too long for it,
+    # so its gate reads (sfb, C) alone
+    assert all(fused_cbr_supported(sfb, c) for sfb in range(1, 9) for c in range(1, 256))
+    assert not fused_cbr_supported(4, 256) and not fused_cbr_supported(9, 2)
+    assert not fused_cbr_supported(0, 2) and not fused_cbr_supported(4, 0)
     # its rings: two slots of dq and two of PCM, a warp of streams to a block
     assert [fused_decode.chunks_per_block(c) for c in (1, 2, 3, 16, 17, 255)] == [32, 16, 10, 2, 1, 1]
     assert [fused_decode.tile_frames(c) for c in (1, 2, 8, 32, 255)] == [256, 256, 128, 32, 32]
     assert fused_decode._smem_bytes(4, 2) == 4 * 16 * (256 * 2 + 4) * 2 + 64 + 64
     assert max(fused_decode._smem_bytes(8, c) for c in range(1, 256)) <= SMEM_LIMIT
-    assert fused_vbr_supported(4, 256, 2, 3203)
-    assert fused_vbr_supported(4, 256, 255, 65535)
-    assert not fused_vbr_supported(4, 256, 255, 490_000)
-    fixed = 4 * (9 * 16 + 36) + 7 * 3 + 2
-    assert fused_vbr_supported(4, 7, 3, SMEM_LIMIT - fixed)
-    assert not fused_vbr_supported(4, 7, 3, SMEM_LIMIT - fixed + 1)
+    # the VBR kernel streams a row too and builds each tile's window tables:
+    # its gate reads (sfb, sff, C) alone and is open for every legal one
+    assert all(fused_vbr_supported(sfb, sff, c)
+               for sfb in range(1, 9) for sff in (1, 2, 20, 255) for c in range(1, 256))
+    assert not fused_vbr_supported(4, 20, 256) and not fused_vbr_supported(9, 20, 2)
+    assert not fused_vbr_supported(4, 0, 2) and not fused_vbr_supported(4, 256, 2)
+
+
+def test_fused_vbr_tables_fit_shared_memory():
+    """The VBR kernel's shared memory (``_smem_bytes``, the launcher's sum)
+    stays within one block's for every sfb, sff 1..255 and C 1..255 (the
+    kernels use no static shared memory), and sizes a tile's window tables
+    for the most windows a tile can touch."""
+    from sea_codec_torch.ops import decode_ring, fused_decode_vbr
+    from sea_codec_torch.ops.cuda_build import SMEM_LIMIT
+
+    worst = max(fused_decode_vbr._smem_bytes(8, sff, c) for sff in range(1, 256) for c in range(1, 256))
+    assert worst <= SMEM_LIMIT
+    assert fused_decode_vbr._smem_bytes(8, 1, 1) == worst  # 32 chunks, a window per frame
+    # stereo at the defaults: rings 4 x 16 x (256*2 + 4) int16, curves, values, 14 windows
+    assert fused_decode_vbr._smem_bytes(4, 20, 2) == 64 + 4 * 16 * 516 * 2 + 144 + 576 + 8 * 16 * 14 * 3 + 64
+    for c in (1, 2, 3, 17, 33, 255):
+        tile = decode_ring.tile_frames(c)
+        for sff in (1, 2, 7, 20, 255):
+            most = max((f0 + tile - 1) // sff - f0 // sff + 1 for f0 in range(0, 2 * sff * tile, tile))
+            assert fused_decode_vbr.windows_per_tile(sff, c) >= most
+            assert fused_decode_vbr.windows_per_tile(sff, c) <= most + 1
+
+
+def test_kernel_library_names_hash_the_shared_headers(tmp_path, monkeypatch):
+    """A library's name carries the hash of its source and of the shared
+    headers: editing ``decode_ring.cuh`` renames every decode kernel's
+    library (a build kept from before is never loaded), editing one kernel
+    renames only its own."""
+    import shutil
+
+    from sea_codec_torch.ops import cuda_build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC, csrc)
+    monkeypatch.setattr(cuda_build, "CSRC", csrc)
+    names = cuda_build.KERNEL_SOURCES
+    before = {n: cuda_build._lib_path(n) for n in names}
+    users = [n for n in names if '#include "decode_ring.cuh"' in (csrc / f"{n}.cu").read_text()]
+    assert sorted(users) == ["fused_decode_cbr", "fused_decode_vbr", "lms_decode"]
+    header = csrc / "decode_ring.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: cuda_build._lib_path(n) for n in names}
+    assert all(after[n] != before[n] for n in users)
+    src = csrc / "lms_decode.cu"
+    src.write_text(src.read_text() + "\n")
+    again = {n: cuda_build._lib_path(n) for n in names}
+    assert [n for n in names if again[n] != after[n]] == ["lms_decode"]
 
 
 def test_fused_wrappers_refuse_oversize_rows():
-    """A row wider than shared memory is refused by the VBR wrapper itself,
-    on any device, instead of reaching a launch that would fail. The CBR
-    kernel stages no row and takes it; what its wrapper refuses is a channel
-    count past the format's 255."""
+    """Neither fused kernel stages a row, so both wrappers take a row wider
+    than shared memory; what they refuse, on any device, is a geometry past
+    the format's (256 channels), instead of reaching a launch that would
+    fail."""
     from sea_codec_torch.ops.fused_decode import decode_cbr_fused
     from sea_codec_torch.ops.fused_decode_vbr import decode_vbr_fused
 
@@ -132,8 +178,10 @@ def test_fused_wrappers_refuse_oversize_rows():
     st_wide = torch.zeros((1, 256, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="bad decode config"):
         decode_cbr_fused(res, wide, st_wide, st_wide, sfb=4, rs=8, sff=20, frames=frames)
-    with pytest.raises(ValueError, match="exceeds shared memory"):
-        decode_vbr_fused(res, sf, torch.full_like(sf, 8), st, st, sfb=4, sff=20, frames=frames)
+    out = decode_vbr_fused(res, sf, torch.full_like(sf, 8), st, st, sfb=4, sff=20, frames=frames)
+    assert out.shape == (1, frames, c) and out.dtype == torch.int16
+    with pytest.raises(ValueError, match="bad decode config"):
+        decode_vbr_fused(res, wide, torch.full_like(wide, 8), st_wide, st_wide, sfb=4, sff=20, frames=frames)
 
 
 @pytest.mark.parametrize("entry", ["decode_range", "decode_corpus", "decode_chunks_packed", "decode_chunks"])

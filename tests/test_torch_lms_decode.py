@@ -151,3 +151,19 @@ def test_wrapper_checks_inputs():
         lms_decode(dq, st.long(), st)
     with pytest.raises(ValueError):
         lms_decode(dq[:0], st, st)
+
+
+def test_wrapper_takes_channels_up_to_one_block():
+    """A block holds every channel of a chunk, one recurrence thread each,
+    with a producer warp left over: 480 channels, past the format's 255;
+    more are refused on every device, so the CPU and the card agree."""
+    from sea_codec_torch.ops import decode_ring
+    from sea_codec_torch.ops.lms_decode import MAX_CHANNELS
+
+    assert MAX_CHANNELS == 480 and -(-MAX_CHANNELS // 32) == decode_ring.MAX_WARPS - 1
+    dq = torch.ones((2, 1, MAX_CHANNELS + 1), dtype=torch.int16)
+    st = torch.zeros((1, MAX_CHANNELS + 1, 4), dtype=torch.int32)
+    out = lms_decode(dq[:, :, :MAX_CHANNELS], st[:, :MAX_CHANNELS], st[:, :MAX_CHANNELS])
+    assert out.shape == (1, 2, MAX_CHANNELS) and bool((out == 1).all())
+    with pytest.raises(ValueError, match="channels"):
+        lms_decode(dq, st, st)

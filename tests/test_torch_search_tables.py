@@ -144,8 +144,8 @@ def test_fused_cbr_shared_memory_follows_the_layout(c):
     for sfb in (1, 8):
         want = 4 * group * (tile * c + 4) * 2 + 4 * (1 << sfb) + 64
         assert fused_decode._smem_bytes(sfb, c) == want <= cuda_build.SMEM_LIMIT
-        assert fused_decode.fused_cbr_supported(sfb, 8, 65535, c)
-    assert not fused_decode.fused_cbr_supported(0, 3, 5120, c)
+        assert fused_decode.fused_cbr_supported(sfb, c)
+    assert not fused_decode.fused_cbr_supported(0, c)
 
 
 # entry weights just below the kernel's f32 guard, between the guard and the

@@ -212,6 +212,33 @@ def test_vbr_decode_255_channels_matches_jax_xla_path():
     np.testing.assert_array_equal(_decode(batch, sfb, sff, frames), np.asarray(want))
 
 
+@pytest.mark.parametrize("sfb", [1, 4, 7])
+@pytest.mark.parametrize("bad_size", [0, 9, 255])
+def test_vbr_plain_cleans_malformed_tables(sfb, bad_size):
+    """Sizes outside 1..8 and scale factors at or past 2^sfb decode as the
+    kernels read them: the plain version equals itself on the cleaned
+    tables (sizes clamped, scale factors masked), instead of failing, and
+    the two-kernel path's plain versions agree."""
+    from sea_codec_torch.ops import dequant
+    from sea_codec_torch.ops.fused_decode_vbr import decode_vbr_plain
+    from sea_codec_torch.ops.lms_decode import lms_decode_plain
+
+    rng = np.random.default_rng(100 * sfb + bad_size)
+    frames, sff, c = 61, 7, 3
+    res, sf, rs, hist, wts = _random_vbr_batch(rng, 2, c, sfb, frames, sff)
+    bad = rng.random(rs.shape) < 0.4
+    rs_bad = np.where(bad, np.uint8(bad_size), rs)
+    sf_bad = sf | (rng.integers(1, 1 << (8 - sfb), sf.shape) << sfb).astype(np.uint8)
+    kw = dict(sfb=sfb, sff=sff, frames=frames)
+    t = lambda *a: [torch.from_numpy(x) for x in a]
+    got = decode_vbr_plain(*t(res, sf_bad, rs_bad, hist, wts), **kw)
+    clean = t(res, sf_bad & ((1 << sfb) - 1), np.clip(rs_bad, 1, 8), hist, wts)
+    np.testing.assert_array_equal(got.numpy(), decode_vbr_plain(*clean, **kw).numpy())
+    assert torch.equal(got, decode_vbr_fused(*t(res, sf_bad, rs_bad, hist, wts), **kw))
+    dq = dequant.unpack_dequant_vbr_plain(*t(res, sf_bad, rs_bad), **kw)
+    assert torch.equal(got, lms_decode_plain(dq, *t(hist, wts)))
+
+
 @pytest.mark.parametrize(
     "channels,frames,fpc,sff,sfb,rb",
     [
