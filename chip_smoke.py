@@ -23,7 +23,9 @@ Phases, in order; any failure exits non-zero:
    tile, extreme weights, each stream also 2 bytes off its alignment); the
    CBR dequant over rs 1..8 x sfb {1,4,8} x C {1,2,3,8,255} and the VBR
    dequant over random size tables, both with full and partial last
-   windows and both against the table build for every (sfb, rs, sf, code);
+   windows, both on the fused VBR decode's edge cases with malformed tables
+   and on batches across their blocks' boundaries, and both against the
+   table build for every (sfb, rs, sf, code);
    and CBR and VBR batches whose rows exceed a block's shared memory, which
    the fused kernels stream tile by tile and the two-kernel path decodes as
    well.
@@ -56,8 +58,9 @@ Phases, in order; any failure exits non-zero:
    kernel and its plain version, beside two least times for the same work:
    the roofline (bytes or operations) and the serial chain at the highest
    SM clock; the VBR host pack's time on its own line. The two-kernel
-   decode's kernels at the same shape [1550, 5120, 2], and its total beside
-   the fused kernel's time, taken in turns.
+   decode's kernels at the same shape [1550, 5120, 2] (``torch.profiler``
+   records one CUDA kernel for one call of each dequant wrapper), and its
+   total beside the fused kernel's time, taken in turns.
 
 The last lines are the kernels' JSON line, the card line and the result
 line. Imports nothing of JAX or of the JAX package.
@@ -81,37 +84,65 @@ H100_F32_OPS_PER_S = 67e12  # float32 outside the tensor cores, data sheet
 H100_ISSUE_PER_S = H100_F32_OPS_PER_S / 2
 H100_INT32_OPS_PER_S = H100_F32_OPS_PER_S / 4
 # (int32, f32) instructions per sample (decode) and per candidate-sample
-# (search), counted from the kernels' inner loops in sea_codec_torch/csrc.
+# (search): the function's own work, counted from the kernels' inner loops in
+# sea_codec_torch/csrc where those do no more than it needs.
 # The three decode kernels share the recurrence of csrc/decode_ring.cuh: per
 # sample 23 on the recurrence thread (the dot, shift, add, clamp, the weight
 # step, a shared-memory load and store) and ~2 of the producers' PCM copy-out.
-# Fused CBR decode: plus a producer's share per sample (19: an eighth of the
-# group's byte loads, assembly and divisions, the code's shift and mask, the
-# scale factor's two loads with their address, the window bookkeeping) and
-# its f32 dequant (I2F, 2 FMUL, 2 FADD, floor, F2I).
-DECODE_OPS_PER_SAMPLE = (44, 7)
+RECURRENCE_OPS_PER_SAMPLE = 25
+# The unpack + dequant (the dequant prologs' whole function, the fused
+# decodes' share), see unpack_dequant_ops: per byte of packed codes its load,
+# shift and or; per sample the code's shift and mask and its value read from
+# the reference table dqt[sf][code], whose entries carry the sign (the
+# address and the load); per eight samples one 16-byte store and its
+# address; per (window, channel) entry the scale factor's load. VBR adds per
+# sample the running bit position and the mask from the code's size, and per
+# entry the size's load and the prefix's add. None of it is f32. How a kernel
+# groups this work (divisions, window bookkeeping, table scans, the copy to
+# the time-major stream) is its own overhead, not the function's.
+UNPACK_OPS_PER_BYTE, UNPACK_OPS_PER_SAMPLE, UNPACK_OPS_PER_GROUP8, UNPACK_OPS_PER_ENTRY = 3, 4, 2, 1
+VBR_UNPACK_OPS_PER_SAMPLE, VBR_UNPACK_OPS_PER_ENTRY = 2, 2
 # Search, the unrolled table step: the carried dot (8 multiply-adds), sea_div
 # (2), the clamp and its limits (6), the lookup (2), the reconstruction (3),
 # the rank (3), the weight step (4), the sign (2), the code store and the
 # sample load (2); f32: the penalty guard (4 I2F, FMUL, 3 FFMA, FMNMX).
 SEARCH_OPS_PER_STEP = (32, 9)
-# Fused VBR decode: the function's work is the CBR decode's with the code's
-# width read per sample (its size's load, the mask from it) at an affine bit
-# offset (start + t*wsum + prefix: a multiply-add and an add), and per
-# (window, channel) entry the size's load and the prefix's add. How this
-# kernel groups its producers' work (divisions, table scans, byte windows)
-# is its own overhead, not the function's, and is not counted.
-VBR_DECODE_OPS_PER_SAMPLE = (DECODE_OPS_PER_SAMPLE[0] + 4, DECODE_OPS_PER_SAMPLE[1])
-VBR_DECODE_OPS_PER_ENTRY = 2
 # the standalone recurrence: the shared 25 plus the producers' copy in
 # 8-byte lines (~3 a sample: the division into frame and line, two addresses,
 # the load, the store, the loop, per four samples); no f32
-LMS_OPS_PER_SAMPLE = (28, 0)
-# the dequant prologs' frame step: bit offset, byte index, two guarded byte
-# loads, window, shift, mask, k, sign (3), store address (2), loop (3); f32:
-# I2F, 2 FMUL, 2 FADD, floor, F2I. VBR adds the index clamp.
-DEQUANT_OPS_PER_SAMPLE = (24, 7)
-VBR_DEQUANT_OPS_PER_SAMPLE = (26, 7)
+LMS_OPS_PER_SAMPLE = (RECURRENCE_OPS_PER_SAMPLE + 3, 0)
+
+
+def code_bytes(b, frames):
+    """Bytes of packed codes that the chunks of ``b`` (parse_full_chunks,
+    ``frames`` a chunk) hold: each (window, channel) entry's size (clamped
+    to 1..8, as the kernels read it; CBR's is constant) for the window's
+    frames, a chunk's bits rounded up to bytes."""
+    _n, w, _c = b.sf.shape
+    fiw = np.minimum(b.scale_factor_frames, frames - np.arange(w) * b.scale_factor_frames)
+    bits = (np.clip(b.rs.astype(np.int64), 1, 8).sum(axis=2) * fiw).sum(axis=1)
+    return int(((bits + 7) // 8).sum())
+
+
+def unpack_dequant_ops(b, frames):
+    """(int32, f32) operations of the unpack + dequant of the chunks of
+    ``b``, by the counts above."""
+    n, w, c = b.sf.shape
+    samples, entries = n * frames * c, n * w * c
+    vbr = b.residual_size == 0
+    per_sample = UNPACK_OPS_PER_SAMPLE + (VBR_UNPACK_OPS_PER_SAMPLE if vbr else 0)
+    per_entry = UNPACK_OPS_PER_ENTRY + (VBR_UNPACK_OPS_PER_ENTRY if vbr else 0)
+    return (UNPACK_OPS_PER_BYTE * code_bytes(b, frames) + per_sample * samples
+            + UNPACK_OPS_PER_GROUP8 * -(-samples // 8) + per_entry * entries, 0)
+
+
+def decode_ops(b, frames):
+    """(int32, f32) operations of a fused decode of the chunks of ``b``:
+    the unpack + dequant, then the recurrence."""
+    n, _w, c = b.sf.shape
+    unpack = unpack_dequant_ops(b, frames)
+    return (unpack[0] + n * frames * c * RECURRENCE_OPS_PER_SAMPLE, unpack[1])
+
 
 # The serial chain each kernel walks, as (integer/f32 instructions,
 # shared-memory loads, shuffles or barriers) that depend on each other in
@@ -216,6 +247,27 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps, out
 
 
+def kernels_recorded(fn, here):
+    """(name, device microseconds) of each CUDA kernel that ``torch.profiler``
+    records for one call of ``fn`` after a warm-up call (its trace kept
+    under ``build/``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out_dir = os.path.join(here, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [(e["name"], e["dur"]) for e in events if e.get("cat") == "kernel"]
+
+
 def worst_of(got, want, what):
     """Largest difference over paired outputs; fails unless all are 0."""
     worst = 0
@@ -317,11 +369,14 @@ def malform_vbr_tables(rng, sf, rs, sfb):
     legal ones and scale factors at or past 2^sfb (the kernels clamp and
     mask them as they read them, and so does the plain version)."""
     rs = rs.copy()
-    sf = sf.copy()
     bad = rng.random(rs.shape) < 0.3
     rs[bad] = rng.choice(np.array([0, 9, 255], np.uint8), int(bad.sum()))
-    sf |= (rng.integers(1, 256 >> sfb, sf.shape) << sfb).astype(np.uint8) if sfb < 8 else 0
-    return sf, rs
+    return malform_sf(rng, sf, sfb), rs
+
+
+def malform_sf(rng, sf, sfb):
+    """Scale factors with random bits set at and past 2^sfb (none at sfb 8)."""
+    return sf | (rng.integers(1, 256 >> sfb, sf.shape) << sfb).astype(np.uint8) if sfb < 8 else sf.copy()
 
 
 # (chunks, channels, frames, sff) beyond the grid: sff 1 (a window a frame)
@@ -593,10 +648,38 @@ def lms_sweep(rng):
 def dequant_sweeps(rng):
     """Both dequant kernels against their plain versions: CBR over rs 1..8 x
     sfb 1,4,8 x C 1,2,3,8,255, VBR over random size tables 1..8, each with
-    full and partial last windows; returns (cbr worst, vbr worst)."""
+    full and partial last windows; then both on VBR_EDGE_CASES (sff 1 and
+    255, C up to 255, frames over many tiles, malformed tables on every
+    other case: CBR scale factors past 2^sfb, VBR sizes 0, 9, 255 too) and on
+    batches of one chunk fewer, as many and one more than a block of each
+    kernel takes, and two blocks and one; returns (cbr worst, vbr worst)."""
     import torch
 
     from sea_codec_torch.ops import dequant
+    from sea_codec_torch.ops.decode_ring import chunks_per_block
+
+    def cbr_case(n, c, frames, sff, sfb, rs, malformed):
+        res = rng.integers(0, 256, (n, -(-frames * c * rs // 8)), dtype=np.uint8)
+        sf = rng.integers(0, 1 << sfb, (n, -(-frames // sff), c), dtype=np.uint8)
+        if malformed:
+            sf = malform_sf(rng, sf, sfb)
+        cpu = [torch.from_numpy(a) for a in (res, sf)]
+        kw = dict(sfb=sfb, rs=rs, sff=sff, frames=frames)
+        got = dequant.unpack_dequant_cbr(*[t.cuda() for t in cpu], **kw)
+        want = dequant.unpack_dequant_cbr_plain(*cpu, **kw)
+        return worst_of([got], [want], f"dequant_cbr n={n} c={c} frames={frames} sff={sff} sfb={sfb} "
+                                       f"rs={rs} malformed={malformed}")
+
+    def vbr_case(n, c, frames, sff, sfb, malformed):
+        res, sf, rs = random_vbr_batch(rng, n, c, sfb, frames, sff)[:3]
+        if malformed:
+            sf, rs = malform_vbr_tables(rng, sf, rs, sfb)
+        cpu = [torch.from_numpy(a) for a in (res, sf, rs)]
+        kw = dict(sfb=sfb, sff=sff, frames=frames)
+        got = dequant.unpack_dequant_vbr(*[t.cuda() for t in cpu], **kw)
+        want = dequant.unpack_dequant_vbr_plain(*cpu, **kw)
+        return worst_of([got], [want], f"dequant_vbr n={n} c={c} frames={frames} sff={sff} sfb={sfb} "
+                                       f"malformed={malformed}")
 
     geoms = ((200, 20), (197, 20), (61, 7), (40, 1))  # (frames, sff)
     worst_c = cases_c = 0
@@ -604,29 +687,35 @@ def dequant_sweeps(rng):
         for sfb in (1, 4, 8):
             for c in (1, 2, 3, 8, 255):
                 frames, sff = geoms[cases_c % 4]
-                n = 3
-                res = rng.integers(0, 256, (n, -(-frames * c * rs // 8)), dtype=np.uint8)
-                sf = rng.integers(0, 1 << sfb, (n, -(-frames // sff), c), dtype=np.uint8)
-                cpu = [torch.from_numpy(a) for a in (res, sf)]
-                kw = dict(sfb=sfb, rs=rs, sff=sff, frames=frames)
-                got = dequant.unpack_dequant_cbr(*[t.cuda() for t in cpu], **kw)
-                want = dequant.unpack_dequant_cbr_plain(*cpu, **kw)
-                worst_c = max(worst_c, worst_of([got], [want], f"dequant_cbr rs={rs} sfb={sfb} c={c}"))
+                worst_c = max(worst_c, cbr_case(3, c, frames, sff, sfb, rs, False))
                 cases_c += 1
     worst_v = cases_v = 0
     for sfb in (1, 4, 8):
         for c in (1, 2, 3, 8, 255):
             for frames, sff in geoms:
-                cpu = [torch.from_numpy(a) for a in random_vbr_batch(rng, 3, c, sfb, frames, sff)[:3]]
-                kw = dict(sfb=sfb, sff=sff, frames=frames)
-                got = dequant.unpack_dequant_vbr(*[t.cuda() for t in cpu], **kw)
-                want = dequant.unpack_dequant_vbr_plain(*cpu, **kw)
-                worst_v = max(worst_v, worst_of([got], [want], f"dequant_vbr sfb={sfb} c={c} frames={frames}"))
+                worst_v = max(worst_v, vbr_case(3, c, frames, sff, sfb, False))
                 cases_v += 1
+    edges = [(n, c, frames, sff, (1, 4, 8)[i % 3], i % 2 == 1)
+             for i, (n, c, frames, sff) in enumerate(VBR_EDGE_CASES)]
+    for i, (n, c, frames, sff, sfb, malformed) in enumerate(edges):
+        worst_c = max(worst_c, cbr_case(n, c, frames, sff, sfb, 1 + i % 8, malformed))
+        worst_v = max(worst_v, vbr_case(n, c, frames, sff, sfb, malformed))
+    # batches across the blocks' boundaries, each kernel its own chunks a block
+    blocks = 0
+    for c, frames, sff in ((1, 300, 20), (2, 530, 20), (3, 100, 7), (17, 70, 1)):
+        for group, case in ((chunks_per_block(c), "cbr"), (dequant.vbr_chunks_per_block(c), "vbr")):
+            for n in sorted({max(1, group - 1), group, group + 1, 2 * group + 1}):
+                blocks += 1
+                if case == "cbr":
+                    worst_c = max(worst_c, cbr_case(n, c, frames, sff, 4, 3, blocks % 2 == 1))
+                else:
+                    worst_v = max(worst_v, vbr_case(n, c, frames, sff, 4, blocks % 2 == 1))
     torch.cuda.synchronize()
     log(f"[phase 2] CBR dequant == plain on {cases_c} configs (rs 1..8 x sfb 1,4,8 x C 1,2,3,8,255), "
         f"VBR dequant == plain on {cases_v} configs (sizes 1..8 per window x sfb 1,4,8 x C 1,2,3,8,255); "
-        "full and partial last windows")
+        f"full and partial last windows; both on the {len(edges)} VBR edge cases (sff 1 and 255, C 1 to "
+        f"255, 1 to 33 chunks, frames over many tiles, malformed tables on every other one) and on "
+        f"{blocks} batches across the blocks' boundaries")
     return worst_c, worst_v
 
 
@@ -1090,7 +1179,7 @@ def decode_at_main_shape(enc, result):
         "launches_by_path": path_launches(result, "fused_decode_cbr")[1],
         "ms": ms, "ms_one_chunk": one_ms, "plain_ms": plain_ms, "shape": [n, f, c],
         "bytes": b.res_bytes.nbytes + b.sf.nbytes + 2 * b.hist.size * 4 + n * f * c * 2,
-        "ops": tuple(n * f * c * k for k in DECODE_OPS_PER_SAMPLE),
+        "ops": decode_ops(b, f),
         # every stream is independent and all are resident at once
         "chain_cycles": f * chain_cycles(DECODE_FRAME_CHAIN),
     }
@@ -1197,9 +1286,7 @@ def vbr_decode_at_main_shape(enc, result):
         "launches_by_path": path_launches(result, "fused_decode_vbr")[1],
         "ms": ms, "ms_one_chunk": one_ms, "plain_ms": plain_ms, "shape": [n, f, c],
         "bytes": b.res_bytes.nbytes + b.sf.nbytes + b.rs.nbytes + 2 * b.hist.size * 4 + n * f * c * 2,
-        # per sample, plus the prefix sums per (window, channel)
-        "ops": (n * f * c * VBR_DECODE_OPS_PER_SAMPLE[0] + n * w * c * VBR_DECODE_OPS_PER_ENTRY,
-                n * f * c * VBR_DECODE_OPS_PER_SAMPLE[1]),
+        "ops": decode_ops(b, f),
         "chain_cycles": f * chain_cycles(DECODE_FRAME_CHAIN),
     }
 
@@ -1309,9 +1396,10 @@ def vbr_search_at_main_shape(pcm, enc, result, clock_mhz):
     }
 
 
-def two_kernel_at_main_shape(enc, enc_vbr, result):
+def two_kernel_at_main_shape(enc, enc_vbr, result, here):
     """The two-kernel decode's kernels on the main paths' full chunks
-    [1550, 5120, 2]: each equal to its plain version, with its time; and the
+    [1550, 5120, 2]: each equal to its plain version, with its time (and one
+    chunk's); each dequant call one CUDA kernel, by the profiler; and the
     path's total (dequant, then the recurrence) beside the fused kernel's
     time on the same chunks, taken in turns (fused, two-kernel, two-kernel,
     fused)."""
@@ -1331,28 +1419,38 @@ def two_kernel_at_main_shape(enc, enc_vbr, result):
         res, sf, rs, hist, wts = (torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in b.arrays)
         kw = dict(sfb=b.scale_factor_bits, sff=b.scale_factor_frames, frames=f)
         if mode == "cbr":
-            kernel = lambda: dequant.unpack_dequant_cbr(res, sf, rs=b.residual_size, **kw)
+            wrap = lambda k: dequant.unpack_dequant_cbr(res[:k], sf[:k], rs=b.residual_size, **kw)
             plain = lambda: dequant.unpack_dequant_cbr_plain(res, sf, rs=b.residual_size, **kw)
-            nbytes, ops = b.res_bytes.nbytes + b.sf.nbytes, DEQUANT_OPS_PER_SAMPLE
+            nbytes = b.res_bytes.nbytes + b.sf.nbytes
         else:
-            kernel = lambda: dequant.unpack_dequant_vbr(res, sf, rs, **kw)
+            wrap = lambda k: dequant.unpack_dequant_vbr(res[:k], sf[:k], rs[:k], **kw)
             plain = lambda: dequant.unpack_dequant_vbr_plain(res, sf, rs, **kw)
-            # the size table, and the wrapper's offsets (two per window, one per size)
-            nbytes = b.res_bytes.nbytes + b.sf.nbytes + b.rs.nbytes + 4 * (2 * n * w + n * w * c)
-            ops = VBR_DEQUANT_OPS_PER_SAMPLE
-        ms, dq = cuda_ms(kernel, reps=20)
+            # the function's work: the rows and both tables in, dq out
+            nbytes = b.res_bytes.nbytes + b.sf.nbytes + b.rs.nbytes
+        ops = unpack_dequant_ops(b, f)
+        ms, dq = cuda_ms(lambda: wrap(n), reps=20)
+        one_ms, _ = cuda_ms(lambda: wrap(1), reps=20)
         plain_ms, want = cuda_ms(plain, reps=1)
         err = worst_of([dq], [want], f"{mode} dequant at the main-path shape")
-        log(f"[phase 5] {mode} dequant kernel == plain at {[n, f, c]}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms")
+        recorded = kernels_recorded(lambda: wrap(n), here)
+        check(len(recorded) == 1 and f"dequant_{mode}_kernel" in recorded[0][0],
+              f"one unpack_dequant_{mode} call recorded the CUDA kernels {recorded}")
+        device_ms = recorded[0][1] / 1e3
+        one_device_ms = kernels_recorded(lambda: wrap(1), here)[0][1] / 1e3
+        log(f"[phase 5] {mode} dequant kernel == plain at {[n, f, c]}: the call {ms:.4f} ms by events over 20 "
+            f"(one chunk alone {one_ms:.4f} ms), its kernel {device_ms:.4f} ms on the card by the profiler "
+            f"(one chunk {one_device_ms:.4f} ms), plain {plain_ms:.1f} ms; one call records one CUDA kernel "
+            f"({recorded[0][0][:60]})")
         out.append((err, {
             "name": f"dequant_{mode}", "route": "cuda",
             "source": f"sea_codec_torch/csrc/dequant_{mode}.cu",
             "replaces": "sea_codec_tpu/ops/pallas_dequant.py:" + ("108" if mode == "cbr" else "322"),
             "launches": path_launches(result, f"dequant_{mode}")[0],
             "launches_by_path": path_launches(result, f"dequant_{mode}")[1],
-            "ms": ms, "plain_ms": plain_ms, "shape": [n, f, c],
+            "ms": ms, "ms_one_chunk": one_ms, "device_ms": device_ms, "device_ms_one_chunk": one_device_ms,
+            "plain_ms": plain_ms, "shape": [n, f, c],
             "bytes": nbytes + n * f * c * 2,
-            "ops": tuple(n * f * c * k for k in ops),
+            "ops": ops,
             "chain_cycles": 0,  # no sample depends on another
         }))
         lms_ms, pcm = cuda_ms(lambda: lms_decode(dq, hist, wts), reps=20)
@@ -1429,7 +1527,7 @@ def run(here):
     clock_mhz = float(smi("clocks.max.sm", ",nounits"))
     kernels = []
     phase5 = [decode_at_main_shape(enc, result), vbr_decode_at_main_shape(enc_vbr, result),
-              *two_kernel_at_main_shape(enc, enc_vbr, result),
+              *two_kernel_at_main_shape(enc, enc_vbr, result, here),
               search_at_main_shape(pcm, enc, result)]
     for err, k in phase5:
         k["max_abs_err"] = max(errs[k["name"]], err)
@@ -1438,6 +1536,8 @@ def run(here):
         log(f"[phase 5] {k['name']}: {k['ms']:.4f} ms; bound {k['bound_ms']:.4f} ms "
             f"(by {k['bound_by']}); chain {k['chain_ms']:.4f} ms at {clock_mhz} MHz; "
             f"least {k['least_ms']:.4f} ms, x{k['ms'] / k['least_ms']:.1f}"
+            + (f"; on the card {k['device_ms']:.4f} ms, x{k['device_ms'] / k['least_ms']:.1f}"
+               if "device_ms" in k else "")
             + (f"; chain by the earlier kernel's model {k['chain_ms_before']:.4f} ms"
                if "chain_ms_before" in k else ""))
     err, kernels[-1]["vbr"] = vbr_search_at_main_shape(pcm, enc_vbr, result, clock_mhz)

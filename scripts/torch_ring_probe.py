@@ -13,6 +13,10 @@ VBR sizes 2 to 4 bits as at a 2.5-bit target) and ``lms_decode``, in one
 copy with the idle warps that leave the recurrence warp's scheduler to it
 and in the other without (every kernel's ``kIsolate`` set so), and prints the phases of blocks 0 and 50, summed over tiles and
 averaged over their producer warps, with the card's name and power limit.
+In the same copies it times the VBR dequant prolog's tile walk
+(``csrc/dequant_vbr.cu``, every warp a producer): per warp, each tile's
+``prepare``, ``fill``, the wait at the barrier before the copy-out and the
+copy-out, at [``--chunks``, 5120, 2] and for one chunk alone.
 """
 
 from __future__ import annotations
@@ -76,6 +80,30 @@ REC_END_PROBED = """    mbar_arrive(r.dq_empty(slot));
   if ((blockIdx.x == 0 || blockIdx.x == 50) && threadIdx.x == 0)
     printf("PROBE recurrence %d %lld %lld\\n", blockIdx.x, clock64() - t0, tw);
 }"""
+# the VBR dequant prolog's tile walk (dequant_vbr.cu): every warp a producer
+DEQUANT = """  for (int i = 0; i < ntiles; ++i) {
+    p.prepare(i);  // waits until every thread is done with tile i - 1
+    p.fill(i, slot);
+    __syncthreads();
+    store_rows(t, slot, i * tile, p.nf, out, stride, vec);
+  }"""
+DEQUANT_PROBED = """  long long tp = 0, tf = 0, tw = 0, ts = 0;
+  const long long t0 = clock64();
+  for (int i = 0; i < ntiles; ++i) {
+    const long long a = clock64();
+    p.prepare(i);
+    const long long b = clock64();
+    p.fill(i, slot);
+    const long long d = clock64();
+    __syncthreads();
+    const long long e = clock64();
+    store_rows(t, slot, i * tile, p.nf, out, stride, vec);
+    tp += b - a; tf += d - b; tw += e - d; ts += clock64() - e;
+  }
+  if ((blockIdx.x == 0 || blockIdx.x == 50) && threadIdx.x % 32 == 0)
+    printf("PROBE dequant %d %d %lld %lld %lld %lld %lld\\n", blockIdx.x, threadIdx.x / 32,
+           clock64() - t0, tp, tf, tw, ts);"""
+
 
 
 def probed_copy(dest, isolate):
@@ -92,6 +120,15 @@ def probed_copy(dest, isolate):
         src = src.replace(old, new)
     with open(path, "w") as f:
         f.write(src)
+    path = os.path.join(dest, "sea_codec_torch", "csrc", "dequant_vbr.cu")
+    with open(path) as f:
+        src = f.read()
+    for old, new in ((DEQUANT, DEQUANT_PROBED), ("#include <cstdint>", "#include <cstdint>\n#include <cstdio>")):
+        if src.count(old) != 1:
+            raise SystemExit(f"torch_ring_probe: dequant_vbr.cu no longer has the text to probe: {old[:60]!r}")
+        src = src.replace(old, new)
+    with open(path, "w") as f:
+        f.write(src)
 
 
 CHILD = r"""
@@ -100,7 +137,7 @@ import sys
 import numpy as np
 import torch
 sys.path.insert(0, sys.argv[1])
-from sea_codec_torch.ops import fused_decode, fused_decode_vbr, lms_decode
+from sea_codec_torch.ops import dequant, fused_decode, fused_decode_vbr, lms_decode
 n, f, c, sff = int(sys.argv[2]), 5120, 2, 20
 wpc = f // sff
 rng = np.random.default_rng(3)
@@ -117,6 +154,8 @@ runs = {
     "fused_decode_cbr": lambda: fused_decode.decode_cbr_fused(res, sf, hist, wts, sfb=4, rs=3, sff=sff, frames=f),
     "fused_decode_vbr": lambda: fused_decode_vbr.decode_vbr_fused(res_v, sf, rs_v, hist, wts, sfb=4, sff=sff, frames=f),
     "lms_decode": lambda: lms_decode.lms_decode(dq, hist, wts),
+    "dequant_vbr": lambda: dequant.unpack_dequant_vbr(res_v, sf, rs_v, sfb=4, sff=sff, frames=f),
+    "dequant_vbr_one_chunk": lambda: dequant.unpack_dequant_vbr(res_v[:1], sf[:1], rs_v[:1], sfb=4, sff=sff, frames=f),
 }
 libc = ctypes.CDLL(None)  # the kernels' printf goes through C's stdout
 
@@ -146,7 +185,13 @@ def summarize(log):
             rec = [r for r in rows if r[0] == "recurrence" and r[1] == blk]
             prod = [r[3:] for r in rows if r[0] == "producer" and r[1] == blk]
             mean = [sum(col) / len(prod) for col in zip(*prod)] if prod else []
+            deq = [r[3:] for r in rows if r[0] == "dequant" and r[1] == blk]
             line = f"{run} block {blk}:"
+            if deq:
+                d = [sum(col) / len(deq) for col in zip(*deq)]
+                out.append(f"{line} {len(deq)} warps, mean total {d[0]:.0f}: prepare {d[1]:.0f}, fill {d[2]:.0f}, "
+                           f"barrier {d[3]:.0f}, copy-out {d[4]:.0f}")
+                continue
             if rec:
                 line += f" recurrence {rec[0][2]} cycles, waiting {rec[0][3]}"
             if mean:
@@ -187,7 +232,8 @@ def main():
             return 1
         for line in summarize(child.stdout):
             print(f"{line}; card {card}")
-    print(f"[{args.chunks}, 5120, 2]: sums over a block's 20 tiles of 256 frames; card {card}")
+    print(f"[{args.chunks}, 5120, 2]: sums over a block's 20 tiles of 256 frames (the VBR dequant: over "
+          f"its own tiles, ops/dequant.py vbr_tile_frames); card {card}")
     return 0
 
 

@@ -11,8 +11,9 @@ imports neither JAX nor anything of ``sea_codec_tpu``.
                  ``fused_decode_vbr``, ``window_search``, ``lms_decode``,
                  and the two of ``dequant``; sources in ``csrc/``, built by
                  ``ops/cuda_build.py``). ``device_decode.decode_chunks_packed``
-                 routes packed chunks to the fused kernels or, for rows too
-                 long for them, to the two-kernel path.
+                 routes packed chunks to the fused kernels, or to the
+                 two-kernel path (a dequant kernel, then ``lms_decode``)
+                 with ``fused=False`` or ``SEA_FUSED_PROLOG=0``.
 - ``models/`` -- the CBR and VBR chunk encoders and the chunk decoder.
 - ``container.py`` -- the ``.sea`` file/chunk framing (host-side bytes).
 - ``encoder.py``/``decoder.py`` -- settings and the streaming sessions

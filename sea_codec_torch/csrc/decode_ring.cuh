@@ -16,7 +16,9 @@
 //     ring kBatch frames at a time into registers, walk only the chain and
 //     the weight step, and write PCM into a shared-memory ring;
 //   - producer warps fill the dq ring a tile of `tile` frames at a time (the
-//     kernel's Producer) and copy finished PCM tiles to the output, which is
+//     kernel's Producer: producer_cbr.cuh, producer_vbr.cuh, which the
+//     two-kernel decode's dequant prologs share, or a copy of the dq stream)
+//     and copy finished PCM tiles to the output, which is
 //     contiguous per chunk and tile, 8 bytes a thread;
 //   - the two meet at mbarriers: a full/empty pair per slot, kSlots slots for
 //     dq and as many for PCM, so the producers' tile t+1 and the write-out of
@@ -40,7 +42,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "tiles.cuh"
+
 namespace decode_ring {
+
+using namespace decode_tiles;
 
 constexpr int kBatch = 32;   // frames a recurrence thread holds in registers
 constexpr int kSlots = 2;    // ring depth, dq tiles and PCM tiles alike
@@ -113,32 +119,15 @@ inline int block_warps(int rec_warps, int prod_warps, bool isolate) {
   return w;
 }
 
-// a barrier among the producer warps alone (named barrier 1; the recurrence
-// warps never wait on it)
-__device__ __forceinline__ void producer_sync(int threads) {
-  asm volatile("bar.sync 1, %0;" ::"r"(threads) : "memory");
-}
-
-// x / d by one multiply, exact for 0 <= x < 2^32 / d (the kernels divide
-// indices below 2^16 by divisors below 2^14)
-struct FastDiv {
-  uint32_t magic;
-  int d;
-  __device__ explicit FastDiv(int d_) : magic(d_ == 1 ? 0u : 0xFFFFFFFFu / d_ + 1u), d(d_) {}
-  __device__ __forceinline__ int operator()(int x) const {
-    return d == 1 ? x : static_cast<int>(__umulhi(static_cast<uint32_t>(x), magic));
-  }
-};
-
-struct Ring {
+// The ring of a block: its tile geometry (tiles.cuh; `sub` is also the PCM
+// ring's sub-tile), the barriers and the two rings.
+struct Ring : Tiles {
   uint64_t* bars;   // dq full, dq empty, PCM full, PCM empty; kSlots each
   int16_t* dq;      // kSlots slots of dq_slot int16
   int16_t* pcm;     // kSlots slots of group sub-tiles of `sub` int16
-  int dq_slot, sub, pcm_slot;
-  int c, tile, frames, ntiles;
-  int chunk0, chunks;      // the block's first chunk and how many it decodes
-  int rec_threads, prod_threads;
-  int ptid;  // this thread's index among the producers, -1 on other warps
+  int dq_slot, pcm_slot;
+  int ntiles;
+  int rec_threads;
 
   __device__ uint64_t* dq_full(int s) const { return bars + s; }
   __device__ uint64_t* dq_empty(int s) const { return bars + kSlots + s; }

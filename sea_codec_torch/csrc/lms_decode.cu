@@ -27,6 +27,7 @@
 #include <cuda_runtime.h>
 
 #include "decode_ring.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -119,8 +120,8 @@ extern "C" int sea_lms_decode(
   const int row = (group * c + 7) / 8 * 8;
   const size_t smem = kBarrierBytes + kSlots * static_cast<size_t>(tile) * row * sizeof(int16_t) +
                       kSlots * static_cast<size_t>(group) * (tile * c + kPad) * sizeof(int16_t);
-  cudaFuncSetAttribute(lms_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem));
+  const cudaError_t err = sea_launch::allow_smem(lms_decode_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (n + group - 1) / group;
   lms_decode_kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int16_t*>(dq), static_cast<const int32_t*>(hist),

@@ -77,6 +77,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -504,8 +506,8 @@ extern "C" int sea_window_search(
                                           : sizeof(int32_t) * (9 * s + 45) + qtab_len;
   const size_t smem = quantizer + sizeof(int32_t) * (9 * s + 2 * sff) +
                       (ranks_only ? 0 : static_cast<size_t>(sff) * s);
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem));
+  const cudaError_t err = sea_launch::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<c, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int16_t*>(samples), static_cast<const int32_t*>(n_valid),
       static_cast<const uint8_t*>(rs_in), static_cast<const int32_t*>(hist_in),

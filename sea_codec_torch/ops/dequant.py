@@ -2,41 +2,56 @@
 the time-major int16 dq stream that ``ops.lms_decode`` walks.
 
 Replaces the TPU kernels ``sea_codec_tpu/ops/pallas_dequant.py``
-``unpack_dequant_cbr_lanes`` and ``unpack_dequant_vbr_lanes``. On a CUDA
-tensor, ``unpack_dequant_cbr`` launches ``csrc/dequant_cbr.cu`` and
-``unpack_dequant_vbr`` launches ``csrc/dequant_vbr.cu`` (one thread per
-(chunk, channel) stream over a tile of frames, nothing staged per chunk, so
-a row of any length decodes; see the source notes there). On a CPU tensor
-each runs its plain PyTorch version (``unpack_dequant_cbr_plain``,
+``unpack_dequant_cbr_lanes`` and ``unpack_dequant_vbr_lanes``, and for VBR
+the bit addressing the JAX package computes outside its kernel. On a CUDA
+tensor each wrapper allocates the output and launches one kernel:
+``unpack_dequant_cbr`` launches ``csrc/dequant_cbr.cu`` and
+``unpack_dequant_vbr`` launches ``csrc/dequant_vbr.cu``. Both are the fused
+decodes' producers (``csrc/producer_cbr.cuh``, ``csrc/producer_vbr.cuh``)
+without the recurrence: every warp of a block fills a shared-memory tile of
+dq for a group of chunks and copies it out time-major; the VBR kernel builds
+each tile's window addressing (prefix sums over the size table, a bit cursor
+carried from tile to tile) itself. Both read a code's value from the
+reference table (``tables.dq_table``, made on the card once per (sfb,
+device)), as the fused kernels do. Nothing is staged per row, so a row of
+any length decodes (see the source notes there). ``_cbr_launch`` and
+``_vbr_launch`` size each launch: the launchers take their block shape and
+shared memory from them and compute only the grid. On a CPU
+tensor each runs its plain PyTorch version (``unpack_dequant_cbr_plain``,
 ``unpack_dequant_vbr_plain``: ``device_decode``'s unpack, then
 ``dequant_codes``). ``cbr_launches`` and ``vbr_launches`` count kernel
 launches. Both take a partial last window (``frames % sff != 0``).
-
-The VBR addressing that is a prefix sum over the size table (each window's
-first bit, its bits per frame, each channel's bit offset in a frame) is
-computed here with ``cumsum`` (``vbr_addressing``), outside the kernel, as
-the JAX package computes it outside its kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import cuda_build, tables
+from .decode_ring import chunks_per_block, tile_frames
 from .device_decode import clean_vbr_tables, dequant_codes, unpack_const, unpack_var
+from .fused_decode_vbr import windows_per_tile
 
 cbr_launches = 0
 vbr_launches = 0
 
 _INT32_BITS = (1 << 31) - 1
+_PAD = 4  # int16 after each chunk's sub-tile in a block's dq slot (kPad)
+_MAX_GRID_Y = 65535
+# threads a block: every warp a producer (at most 512, the kernels' bound)
+CBR_THREADS = 256
+VBR_THREADS = 256
 
 
 def unpack_dequant_cbr_plain(res_bytes, sf_codes, *, sfb, rs, sff, frames):
-    """Plain PyTorch version of the CBR kernel: same inputs, same output."""
+    """Plain PyTorch version of the CBR kernel: same inputs, same output
+    (scale factors masked to 2^sfb, as the kernel reads them)."""
     n, _w, c = sf_codes.shape
     codes = unpack_const(res_bytes, rs, frames * c).reshape(n, frames, c)
+    sf_codes = sf_codes & ((1 << sfb) - 1)
     return dequant_codes(codes, sf_codes, sfb, sff, rs).permute(1, 0, 2).contiguous()
 
 
@@ -47,24 +62,50 @@ def unpack_dequant_vbr_plain(res_bytes, sf_codes, rs, *, sfb, sff, frames):
     return dequant_codes(codes, sf_codes, sfb, sff, rs).permute(1, 0, 2).contiguous()
 
 
-def vbr_addressing(rs, sff: int, frames: int):
-    """(win_start int32[N, W], wsum int32[N, W], prefix int32[N, W, C]) of
-    the sizes ``rs`` uint8[N, W, C]: a code's bit offset in its row is
-    ``win_start[w] + t*wsum[w] + prefix[w, ch]`` (see
-    ``device_decode.unpack_var``). Sizes clamp to 1..8, as the kernel reads
-    them."""
-    w = rs.shape[1]
-    r = rs.to(torch.int32).clamp(1, 8)
-    wsum = r.sum(dim=2, dtype=torch.int32)
-    # the channel scan runs over the outer dimension of a transposed copy: a
-    # scan over an innermost dimension of a few channels is some hundred
-    # times slower on a CUDA card (scripts/torch_vbr_dequant_probe.py)
-    rt = r.permute(2, 0, 1).contiguous()
-    prefix = (rt.cumsum(dim=0, dtype=torch.int32) - rt).permute(1, 2, 0).contiguous()
-    fiw = (frames - torch.arange(w, device=rs.device, dtype=torch.int32) * sff).clamp(0, sff)
-    win_bits = fiw[None, :] * wsum
-    win_start = win_bits.cumsum(dim=1, dtype=torch.int32) - win_bits
-    return win_start, wsum, prefix
+def vbr_chunks_per_block(c: int) -> int:
+    """Chunks one VBR dequant block decodes, walking their tiles in order:
+    few, so that the blocks, each a serial walk over its chunks' tiles, are
+    many (388 at 1,550 stereo chunks, all resident at once)."""
+    return max(1, 8 // c)
+
+
+def vbr_tile_frames(c: int) -> int:
+    """Frames of a VBR dequant block's tile: four of the ring's tiles up to
+    four channels (a block walks its tiles in series, and each costs a table
+    build behind loads from device memory), the ring's beyond."""
+    return tile_frames(c) * (4 if c <= 4 else 1)
+
+
+def _slot_bytes(group: int, tile: int, c: int) -> int:
+    """A block's dq slot: one sub-tile [tile, C] plus ``_PAD`` per chunk,
+    rounded up to 16 bytes."""
+    return -(-group * (tile * c + _PAD) * 2 // 16) * 16
+
+
+def _cbr_launch(n: int, c: int, frames: int) -> dict:
+    """The launch of ``csrc/dequant_cbr.cu``: a block per
+    ``chunks_per_block(C)`` chunks (the grid's x) and tile of
+    ``tile_frames(C)`` frames (its y); shared memory for the dq slot (the
+    launcher takes ``smem`` as given)."""
+    group, tile = chunks_per_block(c), tile_frames(c)
+    return {
+        "grid": (-(-n // group), -(-frames // tile)), "threads": CBR_THREADS,
+        "smem": _slot_bytes(group, tile, c), "group": group, "tile": tile,
+    }
+
+
+def _vbr_launch(n: int, c: int, sff: int, frames: int) -> dict:
+    """The launch of ``csrc/dequant_vbr.cu``: a block per
+    ``vbr_chunks_per_block(C)`` chunks, each walking all their tiles of
+    ``vbr_tile_frames(C)`` frames; shared memory for the dq slot and, per
+    chunk, the windows a tile can touch (8 bytes each), their entries (8
+    bytes a channel) and a bit cursor (the launcher takes ``smem`` as
+    given)."""
+    group, tile = vbr_chunks_per_block(c), vbr_tile_frames(c)
+    nw = windows_per_tile(sff, c, tile)
+    smem = _slot_bytes(group, tile, c) + 8 * group * nw * (1 + c) + 4 * group
+    return {"grid": (-(-n // group),), "threads": VBR_THREADS, "smem": smem, "group": group,
+            "tile": tile, "nwmax": nw}
 
 
 def _check(res_bytes, tabs, sfb, sff, frames):
@@ -100,25 +141,26 @@ def unpack_dequant_cbr(res_bytes, sf_codes, *, sfb, rs, sff, frames):
     n, w, c, device = _check(res_bytes, (("sf_codes", sf_codes),), sfb, sff, frames)
     if not 1 <= rs <= 8:
         raise ValueError(f"bad residual size {rs}")
+    if -(-frames // tile_frames(c)) > _MAX_GRID_Y:
+        raise ValueError(f"{frames} frames exceed the kernel's grid of {_MAX_GRID_Y} tiles")
     need = -(-(frames * c * rs) // 8)
     if res_bytes.shape[1] < need:
         raise ValueError(f"res_bytes must be [{n}, >={need}], got {tuple(res_bytes.shape)}")
     if device.type == "cpu":
         return unpack_dequant_cbr_plain(res_bytes, sf_codes, sfb=sfb, rs=rs, sff=sff, frames=frames)
-    _sfval, _recip, c0_t, stepf_t, endv_t, kmax_t, _cl = tables.rs_tables(sfb)
-    sfval = tables.kernel_tables(sfb, device)[0][rs]  # no host copy per launch
+    dqt = tables.dq_table(sfb, device)  # no host copy per launch
     res_bytes, sf_codes = res_bytes.contiguous(), sf_codes.contiguous()
     out = torch.empty((frames, n, c), dtype=torch.int16, device=device)
     if n == 0:
         return out
-    fn = _cbr_launcher()
+    geo = _cbr_launch(n, c, frames)
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(
-            res_bytes.data_ptr(), sf_codes.data_ptr(), sfval.data_ptr(), out.data_ptr(),
-            n, res_bytes.shape[1], c, w, frames, 1 << sfb, rs, sff,
-            float(c0_t[rs]), float(stepf_t[rs]), float(endv_t[rs]), int(kmax_t[rs]),
-            stream,
+        rc = _cbr_launcher()(
+            res_bytes.data_ptr(), sf_codes.data_ptr(),
+            dqt.data_ptr() + 2 * tables.dq_table_offset(rs, sfb), out.data_ptr(),
+            n, res_bytes.shape[1], need, c, w, frames, 1 << sfb, rs, sff,
+            geo["tile"], geo["group"], geo["threads"], geo["smem"],
+            torch.cuda.current_stream(device).cuda_stream,
         )
     cuda_build.check(rc, "sea_dequant_cbr")
     cbr_launches += 1
@@ -133,37 +175,37 @@ def unpack_dequant_vbr(res_bytes, sf_codes, rs, *, sfb, sff, frames):
     n, w, c, device = _check(res_bytes, (("sf_codes", sf_codes), ("rs", rs)), sfb, sff, frames)
     if device.type == "cpu":
         return unpack_dequant_vbr_plain(res_bytes, sf_codes, rs, sfb=sfb, sff=sff, frames=frames)
-    win_start, wsum, prefix = vbr_addressing(rs, sff, frames)  # the kernel clamps and masks
-    sfval, _recip, curve, ints, _qtab = tables.kernel_tables(sfb, device)
+    dqt = tables.dq_table(sfb, device)  # no host copy per launch
     res_bytes, sf_codes, rs = res_bytes.contiguous(), sf_codes.contiguous(), rs.contiguous()
     out = torch.empty((frames, n, c), dtype=torch.int16, device=device)
     if n == 0:
         return out
-    fn = _vbr_launcher()
+    geo = _vbr_launch(n, c, sff, frames)  # the kernel clamps the sizes and masks the scale factors
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(
-            res_bytes.data_ptr(), sf_codes.data_ptr(), rs.data_ptr(), win_start.data_ptr(),
-            wsum.data_ptr(), prefix.data_ptr(), sfval.data_ptr(), curve.data_ptr(),
-            ints.data_ptr(), out.data_ptr(), n, res_bytes.shape[1], c, w, frames,
-            1 << sfb, sff, stream,
+        rc = _vbr_launcher()(
+            res_bytes.data_ptr(), sf_codes.data_ptr(), rs.data_ptr(), dqt.data_ptr(),
+            out.data_ptr(), n, res_bytes.shape[1], c, w, frames, 1 << sfb, sff,
+            geo["tile"], geo["group"], geo["threads"], geo["nwmax"], geo["smem"],
+            torch.cuda.current_stream(device).cuda_stream,
         )
     cuda_build.check(rc, "sea_dequant_vbr")
     vbr_launches += 1
     return out
 
 
+@functools.cache
 def _cbr_launcher():
     fn = cuda_build.load("dequant_cbr").sea_dequant_cbr
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, f, f, f, i, p]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * 4 + [i] * 13 + [p]
     fn.restype = ctypes.c_int
     return fn
 
 
+@functools.cache
 def _vbr_launcher():
     fn = cuda_build.load("dequant_vbr").sea_dequant_vbr
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 10 + [i] * 7 + [p]
+    fn.argtypes = [p] * 5 + [i] * 12 + [p]
     fn.restype = ctypes.c_int
     return fn

@@ -8,8 +8,9 @@ everything that is not the chain runs on other warps: the shared recurrence
 ring of ``csrc/decode_ring.cuh`` (``ops.decode_ring``: ``chunks_per_block(C)``
 chunks a block, recurrence warps that walk only the chain, producer warps,
 mbarriers between them), whose producers here unpack and dequantize tiles of
-``tile_frames(C)`` frames straight from device memory into the dq ring. A
-block stages no packed row, so rows of any length decode. On a CPU tensor
+``tile_frames(C)`` frames straight from device memory into the dq ring, a
+code's value read from the reference table (``tables.dq_table``). A block
+stages no packed row, so rows of any length decode. On a CPU tensor
 it runs the plain PyTorch version, ``decode_cbr_plain``. ``launches`` counts
 kernel launches.
 """
@@ -34,18 +35,18 @@ def decode_cbr_plain(res_bytes, sf_codes, hist0, wts0, *, sfb, rs, sff, frames):
     return decode_chunks_fn(codes, sf_codes, hist0, wts0, sfb, sff, rs)
 
 
-def _smem_bytes(sfb: int, c: int) -> int:
-    """Dynamic shared memory of one block (layout in fused_decode_cbr.cu):
-    the barriers, a dq ring laid out like the PCM ring, the PCM ring, the
-    scale-factor values."""
-    return decode_ring.BARRIER_BYTES + 2 * decode_ring.pcm_ring_bytes(c) + 4 * (1 << sfb)
+def _smem_bytes(c: int) -> int:
+    """Dynamic shared memory of one block, as the launch asks for it (layout
+    in fused_decode_cbr.cu): the barriers, a dq ring laid out like the PCM
+    ring, the PCM ring."""
+    return decode_ring.BARRIER_BYTES + 2 * decode_ring.pcm_ring_bytes(c)
 
 
 def fused_cbr_supported(sfb: int, c: int) -> bool:
     """Whether the kernel can take chunks of this geometry. The kernel
     streams the packed row tile by tile, so neither the row's length nor
     ``rs`` bounds it: the rings fit for every legal (sfb, C)."""
-    return 1 <= sfb <= 8 and 1 <= c <= 255 and _smem_bytes(sfb, c) <= cuda_build.SMEM_LIMIT
+    return 1 <= sfb <= 8 and 1 <= c <= 255 and _smem_bytes(c) <= cuda_build.SMEM_LIMIT
 
 
 def _check_inputs(res_bytes, sf_codes, hist0, wts0, sfb, rs, sff, frames):
@@ -88,8 +89,7 @@ def decode_cbr_fused(res_bytes, sf_codes, hist0, wts0, *, sfb, rs, sff, frames):
         )
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-    _sfval, _recip, c0_t, stepf_t, endv_t, kmax_t, _cl = tables.rs_tables(sfb)
-    sfval = tables.kernel_tables(sfb, device)[0][rs]  # no host copy per launch
+    dqt = tables.dq_table(sfb, device)  # no host copy per launch
     res_bytes = res_bytes.contiguous()
     sf_codes = sf_codes.contiguous()
     hist0 = hist0.contiguous()
@@ -102,11 +102,9 @@ def decode_cbr_fused(res_bytes, sf_codes, hist0, wts0, *, sfb, rs, sff, frames):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(
             res_bytes.data_ptr(), sf_codes.data_ptr(), hist0.data_ptr(),
-            wts0.data_ptr(), sfval.data_ptr(), out.data_ptr(),
+            wts0.data_ptr(), dqt.data_ptr() + 2 * tables.dq_table_offset(rs, sfb), out.data_ptr(),
             n, res_bytes.shape[1], need, c, w, frames, 1 << sfb, rs, sff, tile_frames(c),
-            chunks_per_block(c),
-            float(c0_t[rs]), float(stepf_t[rs]), float(endv_t[rs]), int(kmax_t[rs]),
-            stream,
+            chunks_per_block(c), _smem_bytes(c), stream,
         )
     cuda_build.check(rc, "sea_fused_decode_cbr")
     launches += 1
@@ -115,7 +113,7 @@ def decode_cbr_fused(res_bytes, sf_codes, hist0, wts0, *, sfb, rs, sff, frames):
 
 def _launcher():
     fn = cuda_build.load("fused_decode_cbr").sea_fused_decode_cbr
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, f, f, f, i, p]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * 6 + [i] * 12 + [p]
     fn.restype = ctypes.c_int
     return fn

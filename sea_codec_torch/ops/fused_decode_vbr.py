@@ -6,8 +6,9 @@ Replaces the TPU kernel ``sea_codec_tpu/ops/pallas_fused_decode.py``
 ``csrc/decode_ring.cuh`` (``ops.decode_ring``), whose producers build, for
 each tile, the bit addressing of the windows it touches (each window's first
 bit from a bit cursor carried from tile to tile, its bits per frame, each
-channel's prefix) and then unpack and dequantize the tile's codes straight
-from device memory (see the source note there). No packed row is staged, so
+channel's prefix) and then unpack the tile's codes straight from device
+memory and read their values from the reference tables (``tables.dq_table``;
+see the source note there). No packed row is staged, so
 the gate ``fused_vbr_supported`` depends on (sfb, sff, C) alone and is open
 for every legal one. On a CPU tensor it runs the plain PyTorch version,
 ``decode_vbr_plain``. ``launches`` counts kernel launches.
@@ -37,21 +38,20 @@ def decode_vbr_plain(res_bytes, sf_codes, rs, hist0, wts0, *, sfb, sff, frames):
     return decode_chunks_fn(codes, sf_codes, hist0, wts0, sfb, sff, rs)
 
 
-def windows_per_tile(sff: int, c: int) -> int:
-    """The most windows of ``sff`` frames that one tile can touch."""
-    return (tile_frames(c) + sff - 2) // sff + 1
+def windows_per_tile(sff: int, c: int, tile: int | None = None) -> int:
+    """The most windows of ``sff`` frames that one tile of ``tile`` frames
+    (by default the ring's, ``tile_frames(C)``) can touch."""
+    return ((tile or tile_frames(c)) + sff - 2) // sff + 1
 
 
-def _smem_bytes(sfb: int, sff: int, c: int) -> int:
-    """Dynamic shared memory of one block (layout in fused_decode_vbr.cu):
-    the barriers, a dq ring laid out like the PCM ring, the PCM ring, the
-    curve constants of the nine sizes (16 bytes each), the scale-factor
-    values of every size, and per chunk the windows (8 bytes each), their
-    entries (8 bytes a channel) and a bit cursor."""
+def _smem_bytes(sff: int, c: int) -> int:
+    """Dynamic shared memory of one block, as the launch asks for it (layout
+    in fused_decode_vbr.cu): the barriers, a dq ring laid out like the PCM
+    ring, the PCM ring, and per chunk the windows a tile can touch (8 bytes
+    each), their entries (8 bytes a channel) and a bit cursor."""
     g = chunks_per_block(c)
     nw = windows_per_tile(sff, c)
-    return (decode_ring.BARRIER_BYTES + 2 * decode_ring.pcm_ring_bytes(c) + 16 * 9
-            + 4 * 9 * (1 << sfb) + 8 * g * nw * (1 + c) + 4 * g)
+    return decode_ring.BARRIER_BYTES + 2 * decode_ring.pcm_ring_bytes(c) + 8 * g * nw * (1 + c) + 4 * g
 
 
 def fused_vbr_supported(sfb: int, sff: int, c: int) -> bool:
@@ -59,7 +59,7 @@ def fused_vbr_supported(sfb: int, sff: int, c: int) -> bool:
     length nor the number of windows bounds it: the rings and a tile's
     window tables fit for every legal (sfb, sff, C)."""
     return (1 <= sfb <= 8 and 1 <= sff <= 255 and 1 <= c <= 255
-            and _smem_bytes(sfb, sff, c) <= cuda_build.SMEM_LIMIT)
+            and _smem_bytes(sff, c) <= cuda_build.SMEM_LIMIT)
 
 
 def decode_vbr_fused(res_bytes, sf_codes, rs, hist0, wts0, *, sfb, sff, frames):
@@ -94,7 +94,7 @@ def decode_vbr_fused(res_bytes, sf_codes, rs, hist0, wts0, *, sfb, sff, frames):
         )
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-    sfval, _recip, curve, ints, _qtab = tables.kernel_tables(sfb, device)
+    dqt = tables.dq_table(sfb, device)  # no host copy per launch
     res_bytes, sf_codes, rs = res_bytes.contiguous(), sf_codes.contiguous(), rs.contiguous()
     hist0, wts0 = hist0.contiguous(), wts0.contiguous()
     out = torch.empty((n, frames, c), dtype=torch.int16, device=device)
@@ -105,9 +105,9 @@ def decode_vbr_fused(res_bytes, sf_codes, rs, hist0, wts0, *, sfb, sff, frames):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(
             res_bytes.data_ptr(), sf_codes.data_ptr(), rs.data_ptr(), hist0.data_ptr(),
-            wts0.data_ptr(), sfval.data_ptr(), curve.data_ptr(), ints.data_ptr(),
-            out.data_ptr(), n, res_bytes.shape[1], c, w, frames, 1 << sfb, sff,
-            tile_frames(c), chunks_per_block(c), windows_per_tile(sff, c), stream,
+            wts0.data_ptr(), dqt.data_ptr(), out.data_ptr(), n, res_bytes.shape[1], c, w,
+            frames, 1 << sfb, sff, tile_frames(c), chunks_per_block(c), windows_per_tile(sff, c),
+            _smem_bytes(sff, c), stream,
         )
     cuda_build.check(rc, "sea_fused_decode_vbr")
     launches += 1
@@ -117,6 +117,6 @@ def decode_vbr_fused(res_bytes, sf_codes, rs, hist0, wts0, *, sfb, sff, frames):
 def _launcher():
     fn = cuda_build.load("fused_decode_vbr").sea_fused_decode_vbr
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 9 + [i] * 10 + [p]
+    fn.argtypes = [p] * 7 + [i] * 11 + [p]
     fn.restype = ctypes.c_int
     return fn

@@ -257,6 +257,25 @@ def dqt(residual_bits: int, scale_factor_bits: int) -> np.ndarray:
     return out
 
 
+def dq_table_offset(residual_bits: int, scale_factor_bits: int) -> int:
+    """Where ``dqt(residual_bits, sfb)`` starts in ``dq_table(sfb, ...)``:
+    after the tables of the smaller sizes, 2^sfb * (2 + 4 + ... + 2^(rs-1))
+    entries."""
+    return (1 << scale_factor_bits) * ((1 << residual_bits) - 2)
+
+
+@lru_cache(maxsize=None)
+def dq_table(scale_factor_bits: int, device):
+    """``dqt`` of every residual size 1..8 as the dequant prologs' kernels
+    read it: int16 (|dq| <= 27090), the [2^sfb, 2^rs] table of size rs from
+    ``dq_table_offset(rs, sfb)`` on; on ``device``, made once per (sfb,
+    device) so that a launch copies nothing from the host."""
+    import torch
+
+    flat = np.concatenate([dqt(rs, scale_factor_bits).reshape(-1) for rs in range(1, 9)])
+    return torch.as_tensor(flat.astype(np.int16), device=device)
+
+
 # Rows of ``search_table``: 2^(rs+2) + 1 half-step quotients for rs in 1..=8.
 SEARCH_TAB_ROWS = 4 * 510 + 8  # = 2048
 

@@ -122,6 +122,15 @@ def test_cbr_two_kernel_matches_jax_two_kernel(n, frames, c, sff, sfb, rs):
         (1, 25, 2, 5, 3, 8),
         (6, 35, 7, 5, 5, 2),
         (2, 82, 1, 41, 4, 8),
+        # a window a frame, and windows longer than the kernel's tiles; 17
+        # and 33 channels (one chunk a block, a warp's scan over more than
+        # one pass of entries); frames over several of the kernel's tiles
+        (2, 600, 2, 1, 4, 8),
+        (2, 300, 17, 255, 3, 8),
+        (1, 100, 33, 1, 5, 4),
+        (2, 150, 33, 20, 4, 8),
+        (3, 1100, 1, 255, 8, 8),
+        (2, 2100, 2, 20, 4, 4),
     ],
 )
 def test_vbr_two_kernel_matches_jax_two_kernel(n, frames, c, sff, sfb, mcb):
@@ -264,16 +273,6 @@ def test_dequant_matches_table_for_every_code(sfb):
             sfb=sfb, sff=1, frames=1,
         )
         np.testing.assert_array_equal(dq_v.reshape(-1).numpy(), want)
-
-
-def test_vbr_addressing_is_the_prefix_sums():
-    rs = torch.tensor([[[3, 1], [2, 8], [5, 5]]], dtype=torch.uint8)  # W=3, C=2
-    win_start, wsum, prefix = dequant.vbr_addressing(rs, sff=4, frames=10)
-    assert wsum.tolist() == [[4, 10, 10]]
-    assert prefix.tolist() == [[[0, 3], [0, 2], [0, 5]]]
-    # windows of 4, 4 and 2 frames: 16 and 40 bits before the third
-    assert win_start.tolist() == [[0, 16, 56]]
-    assert win_start.dtype == wsum.dtype == prefix.dtype == torch.int32
 
 
 def test_vbr_malformed_tables_decode_without_raising():

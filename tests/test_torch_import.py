@@ -103,8 +103,8 @@ def test_fused_gates_decide_from_the_geometry():
     # its rings: two slots of dq and two of PCM, a warp of streams to a block
     assert [fused_decode.chunks_per_block(c) for c in (1, 2, 3, 16, 17, 255)] == [32, 16, 10, 2, 1, 1]
     assert [fused_decode.tile_frames(c) for c in (1, 2, 8, 32, 255)] == [256, 256, 128, 32, 32]
-    assert fused_decode._smem_bytes(4, 2) == 4 * 16 * (256 * 2 + 4) * 2 + 64 + 64
-    assert max(fused_decode._smem_bytes(8, c) for c in range(1, 256)) <= SMEM_LIMIT
+    assert fused_decode._smem_bytes(2) == 4 * 16 * (256 * 2 + 4) * 2 + 64
+    assert max(fused_decode._smem_bytes(c) for c in range(1, 256)) <= SMEM_LIMIT
     # the VBR kernel streams a row too and builds each tile's window tables:
     # its gate reads (sfb, sff, C) alone and is open for every legal one
     assert all(fused_vbr_supported(sfb, sff, c)
@@ -121,17 +121,93 @@ def test_fused_vbr_tables_fit_shared_memory():
     from sea_codec_torch.ops import decode_ring, fused_decode_vbr
     from sea_codec_torch.ops.cuda_build import SMEM_LIMIT
 
-    worst = max(fused_decode_vbr._smem_bytes(8, sff, c) for sff in range(1, 256) for c in range(1, 256))
+    worst = max(fused_decode_vbr._smem_bytes(sff, c) for sff in range(1, 256) for c in range(1, 256))
     assert worst <= SMEM_LIMIT
-    assert fused_decode_vbr._smem_bytes(8, 1, 1) == worst  # 32 chunks, a window per frame
-    # stereo at the defaults: rings 4 x 16 x (256*2 + 4) int16, curves, values, 14 windows
-    assert fused_decode_vbr._smem_bytes(4, 20, 2) == 64 + 4 * 16 * 516 * 2 + 144 + 576 + 8 * 16 * 14 * 3 + 64
+    assert fused_decode_vbr._smem_bytes(1, 1) == worst  # 32 chunks, a window per frame
+    # stereo at the defaults: barriers, rings 4 x 16 x (256*2 + 4) int16, 14 windows, cursors
+    assert fused_decode_vbr._smem_bytes(20, 2) == 64 + 4 * 16 * 516 * 2 + 8 * 16 * 14 * 3 + 64
     for c in (1, 2, 3, 17, 33, 255):
         tile = decode_ring.tile_frames(c)
         for sff in (1, 2, 7, 20, 255):
             most = max((f0 + tile - 1) // sff - f0 // sff + 1 for f0 in range(0, 2 * sff * tile, tile))
             assert fused_decode_vbr.windows_per_tile(sff, c) >= most
             assert fused_decode_vbr.windows_per_tile(sff, c) <= most + 1
+
+
+@pytest.mark.parametrize("n", [1, 17, 1550])
+@pytest.mark.parametrize("c", [1, 2, 17, 33, 255])
+@pytest.mark.parametrize("sff", [1, 20, 255])
+@pytest.mark.parametrize("sfb", [1, 8])
+def test_dequant_launches_fit_and_cover_every_chunk(sfb, sff, c, n):
+    """The dequant wrappers' mirrors of their launchers (``_cbr_launch``,
+    ``_vbr_launch``): the shared memory fits one block's, the blocks take
+    every chunk (and for CBR every tile of frames) once, the VBR tables hold
+    the most windows a tile can touch, and the dq table the kernels read
+    holds every (size, scale factor, code) of the configuration."""
+    from sea_codec_torch.ops import dequant, tables
+    from sea_codec_torch.ops.cuda_build import SMEM_LIMIT
+
+    frames = 5120
+    cbr = dequant._cbr_launch(n, c, frames)
+    vbr = dequant._vbr_launch(n, c, sff, frames)
+    for geo in (cbr, vbr):
+        assert geo["smem"] <= SMEM_LIMIT
+        assert geo["threads"] % 32 == 0 and 32 <= geo["threads"] <= 512
+        assert geo["group"] <= geo["threads"]  # a thread zeroes each chunk's bit cursor
+        assert geo["tile"] % 32 == 0
+        gx, group = geo["grid"][0], geo["group"]
+        assert (gx - 1) * group < n <= gx * group
+    gy, tile = cbr["grid"][1], cbr["tile"]
+    assert (gy - 1) * tile < frames <= gy * tile and gy <= 65535
+    tile = vbr["tile"]
+    most = max((f0 + tile - 1) // sff - f0 // sff + 1 for f0 in range(0, frames, tile))
+    assert most <= vbr["nwmax"] <= most + 1
+    # the slot holds a tile of every chunk, the tables every window's entries
+    assert vbr["smem"] >= vbr["group"] * (tile * c * 2 + 8 * vbr["nwmax"] * (1 + c))
+    flat = tables.dq_table(sfb, "cpu")
+    assert flat.dtype == torch.int16
+    assert flat.numel() == tables.dq_table_offset(8, sfb) + (1 << (sfb + 8))
+    for rs in (1, 3, 8):
+        at = tables.dq_table_offset(rs, sfb)
+        want = tables.dqt(rs, sfb)
+        got = flat[at : at + want.size].reshape(want.shape).numpy()
+        assert (got == want).all()
+
+
+def test_dequant_kernels_share_the_fused_producers():
+    """Each dequant prolog is the fused decode's producer without the
+    recurrence: the CBR pair and the VBR pair include one producer header and
+    build the same producer (one dequant path, the reference table), and the
+    dequant kernels stay out of the recurrence ring."""
+    from sea_codec_torch.ops import cuda_build
+
+    src = {n: (cuda_build.CSRC / f"{n}.cu").read_text() for n in cuda_build.KERNEL_SOURCES}
+    for mode, producer in (("cbr", "CbrProducer p{"), ("vbr", "VbrProducer p{")):
+        include = f'#include "producer_{mode}.cuh"'
+        assert include in src[f"fused_decode_{mode}"] and include in src[f"dequant_{mode}"]
+        assert "decode_ring.cuh" not in src[f"dequant_{mode}"]
+        assert producer in src[f"fused_decode_{mode}"] and producer in src[f"dequant_{mode}"]
+        header = (cuda_build.CSRC / f"producer_{mode}.cuh").read_text()
+        assert "template" not in header and "__ldg(dqt" in header
+
+
+@pytest.mark.parametrize("name", ["fused_decode_cbr", "fused_decode_vbr", "window_search",
+                                  "lms_decode", "dequant_cbr", "dequant_vbr"])
+def test_launchers_ask_for_shared_memory_once(name):
+    """Every launcher asks for more than the default shared memory through
+    ``launch.cuh``'s ``allow_smem`` (once per kernel, device and size, and
+    only above 48 KB), never through ``cudaFuncSetAttribute`` on every
+    launch, and returns its error."""
+    from sea_codec_torch.ops import cuda_build
+
+    assert name in cuda_build.KERNEL_SOURCES
+    src = (cuda_build.CSRC / f"{name}.cu").read_text()
+    assert '#include "launch.cuh"' in src
+    assert "cudaFuncSetAttribute" not in src
+    assert src.count("sea_launch::allow_smem(") == 1
+    assert "if (err != cudaSuccess) return static_cast<int>(err);" in src
+    header = (cuda_build.CSRC / "launch.cuh").read_text()
+    assert header.count("cudaFuncSetAttribute(") == 1 and "48 * 1024" in header
 
 
 def test_kernel_library_names_hash_the_shared_headers(tmp_path, monkeypatch):

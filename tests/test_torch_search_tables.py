@@ -136,14 +136,14 @@ def test_search_takes_the_longest_window_that_fits():
 @pytest.mark.parametrize("c", [1, 2, 3, 8, 16, 17, 32, 33, 255])
 def test_fused_cbr_shared_memory_follows_the_layout(c):
     """Two slots of dq and two of PCM, each a block's chunks x (tile x C + 4)
-    int16, then the scale-factor values and eight barriers; every legal
-    (sfb, C) fits, whatever the row's length."""
+    int16, and eight barriers; every legal (sfb, C) fits, whatever the row's
+    length."""
     group, tile = fused_decode.chunks_per_block(c), fused_decode.tile_frames(c)
     assert group == max(1, 32 // c) and group * c <= max(32, c)
     assert tile % 32 == 0 and 32 <= tile <= 256
     for sfb in (1, 8):
-        want = 4 * group * (tile * c + 4) * 2 + 4 * (1 << sfb) + 64
-        assert fused_decode._smem_bytes(sfb, c) == want <= cuda_build.SMEM_LIMIT
+        want = 4 * group * (tile * c + 4) * 2 + 64
+        assert fused_decode._smem_bytes(c) == want <= cuda_build.SMEM_LIMIT
         assert fused_decode.fused_cbr_supported(sfb, c)
     assert not fused_decode.fused_cbr_supported(0, c)
 
