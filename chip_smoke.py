@@ -17,7 +17,10 @@ Phases, in order; any failure exits non-zero:
    1..8 on clipping stress signals, at sff 20 (the unrolled loop) and 16,
    with and without a ragged tail, from entry weights on both sides of the
    weights penalty's bound and at the int32 ends, and in its VBR forms
-   (per-window sizes; ranks-only, also against the full form).
+   (per-window sizes; ranks-only, also against the full form); and with
+   valid counts per (window, lane), the corpus encode's form, in all three
+   forms at sfb 1, 4, 8, sff 20 and 13 and 1 to 600 lanes, the per-window
+   sizes with only a size range's table rows staged.
    The kernels of the two-kernel decode: the LMS recurrence on random dq
    streams (1 to 80,000 streams, C 1 to 255, 300 and 480, frame counts off every
    tile, extreme weights, each stream also 2 bytes off its alignment); the
@@ -45,9 +48,16 @@ Phases, in order; any failure exits non-zero:
    mode, once with the default routing (every group on the fused kernels,
    no two-kernel launch) and once with the fused kernels off
    (``SEA_FUSED_PROLOG=0``: every batch on the two-kernel path); every
-   file's PCM equal to ``decode_sea``'s. (c) One file per mode through
-   ``SeaEncoder``/``SeaDecoder`` chunk by chunk, bytes equal to the batch
-   engine's.
+   file's PCM equal to ``decode_sea``'s; then once with
+   ``batch.PIPELINE_TIMES`` set, for its stage report. (c) ``encode_corpus``,
+   both modes, on bench.py's corpus shape (256 stereo files of 7-8 chunks
+   CBR, 64 VBR) and on (b)'s files by channel count, bytes equal to
+   per-file ``sea_encode``, the search launched lane-packed, with its
+   stage report and the summed per-file walls. (d) The device transcodes
+   (``parse_device``) of (a)'s full-chunk rows, PCM equal to
+   ``decode_sea``'s, with no wait for the card before the result. (e) One
+   file per mode through ``SeaEncoder``/``SeaDecoder`` chunk by chunk, bytes
+   equal to the batch engine's.
 5. The kernels at the main-path shapes: each decode kernel equal to its
    plain version on all full chunks, timed there and on one chunk alone (the
    recurrence on the CBR and the VBR dq stream); the search kernel equal to the CBR
@@ -60,7 +70,10 @@ Phases, in order; any failure exits non-zero:
    SM clock; the VBR host pack's time on its own line. The two-kernel
    decode's kernels at the same shape [1550, 5120, 2] (``torch.profiler``
    records one CUDA kernel for one call of each dequant wrapper), and its
-   total beside the fused kernel's time, taken in turns.
+   total beside the fused kernel's time, taken in turns. The search's
+   per-window form at 132, 264 and 528 lanes with every size's table rows
+   staged and with 1..4's, in turns, and the blocks an SM holds of each
+   form the corpus encode launches.
 
 The last lines are the kernels' JSON line, the card line and the result
 line. Imports nothing of JAX or of the JAX package.
@@ -603,6 +616,53 @@ def search_sweep_vbr(rng):
     return worst
 
 
+def search_sweep_lanes(rng):
+    """The search's per-lane valid-length form (n_valid int32[W, lanes], the
+    corpus encode's), in all three forms: a constant size, ranks-only, and
+    per-window sizes with only a size range's table rows staged; lanes 1
+    to 600, past the format's 255 channels; per lane, counts that mix full
+    windows, partial windows and 0 (prefix lengths on even lanes, any count
+    per window on odd ones). Each equal to the plain version on the same
+    inputs on the card."""
+    import torch
+
+    from sea_codec_torch.ops.window_search import window_search, window_search_plain
+
+    grid = [(sfb, sff, lanes) for sfb in (1, 4, 8) for sff in (20, 13) for lanes in (1, 2, 133, 300, 600)]
+    ranges = ((1, 4), (2, 5), (5, 8))
+    worst = 0
+    for i, (sfb, sff, lanes) in enumerate(grid):
+        nw, wpc = 5, 2
+        x = stress_signal(rng, nw * sff, lanes)
+        length = rng.integers(0, nw * sff + 1, lanes)
+        length[0] = nw * sff
+        if lanes > 1:
+            length[1] = 0
+        nv = np.clip(length[None, :] - np.arange(nw)[:, None] * sff, 0, sff)
+        nv[:, 3::2] = rng.integers(0, sff + 1, (nw, len(range(3, lanes, 2))))
+        hist = torch.from_numpy(rng.integers(-32768, 32768, (lanes, 4)).astype(np.int32))
+        wts = torch.from_numpy(rng.integers(-(1 << 22), 1 << 22, (lanes, 4)).astype(np.int32))
+        if i % 4 == 2:
+            wts = penalty_edge_weights(lanes, shift=i)
+        prev = torch.from_numpy(rng.integers(0, 1 << sfb, lanes).astype(np.int32))
+        lo, hi = ranges[i % 3]
+        sizes = torch.from_numpy(rng.integers(lo, hi + 1, (nw, lanes)).astype(np.uint8)).cuda()
+        args = tuple(t.cuda() for t in (torch.from_numpy(x), torch.from_numpy(nv.astype(np.int32)), hist, wts, prev))
+        what = f"per-lane search sfb={sfb} sff={sff} lanes={lanes}"
+        for form in (dict(rs=1 + i % 8), dict(rs=1 + i % 8, ranks_only=True), dict(rs=sizes, rs_range=(lo, hi))):
+            kw = dict(form, sfb=sfb, sff=sff, wpc=wpc)
+            got = window_search(*args, **kw)
+            want = window_search_plain(*args, **kw)
+            keep = [j for j in range(8) if want[j] is not None]
+            check((got[1] is None) == (want[1] is None), f"{what}: codes presence")
+            worst = max(worst, worst_of([got[j] for j in keep], [want[j] for j in keep], what))
+    torch.cuda.synchronize()
+    log(f"[phase 2] window search, per-lane valid counts == plain on {len(grid)} configs x 3 forms "
+        "(sfb 1,4,8 x sff 20,13 x lanes 1,2,133,300,600; counts full, partial and 0 per lane; "
+        "per-window sizes with the rows of 1..4, 2..5 or 5..8 staged)")
+    return worst
+
+
 def lms_sweep(rng):
     """The recurrence kernel on random dq streams and entry states: 1 to
     80,000 streams, channel counts that fill a block's warp or not (1, 2, 3,
@@ -1010,23 +1070,29 @@ CORPUS_FILES = (
 
 def make_corpus(rng):
     """The corpus for ``decode_corpus``: each distinct file encoded once on
-    the card, per mode, and listed as often as CORPUS_FILES says. Returns
-    (files, index of each file's distinct blob, distinct blobs with their
-    (mode, channels, frames))."""
+    the card, per mode, and listed as often as CORPUS_FILES says. Returns a
+    dict: files, the index of each file's distinct blob (which), the
+    distinct blobs with their (mode, channels, frames) (meta), their PCM
+    and each one's ``sea_encode`` wall on the card, and the samples."""
     import torch
 
     from sea_codec_torch import EncoderSettings, sea_encode
     from sea_codec_torch.utils.signal import varied_signal
 
     t0 = time.perf_counter()
-    blobs, meta, files, which = [], [], [], []
+    blobs, meta, files, which, pcms, enc_s = [], [], [], [], [], []
     for mode, st in (("cbr", EncoderSettings()), ("vbr", vbr_settings())):
         for i, ((c, frames), repeat) in enumerate(CORPUS_FILES):
             if c == 255:
                 pcm = rng.integers(-20000, 20000, frames * c).astype(np.int16)
             else:
                 pcm = varied_signal(c, frames, seed=1000 + i)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
             blobs.append(sea_encode(pcm, CORPUS_RATE, c, st))
+            torch.cuda.synchronize()
+            enc_s.append(time.perf_counter() - t1)
+            pcms.append(pcm)
             meta.append((mode, c, frames))
             files += [blobs[-1]] * repeat
             which += [len(blobs) - 1] * repeat
@@ -1037,19 +1103,21 @@ def make_corpus(rng):
     check(len(tails) == len(blobs), "two distinct corpus files share a ragged tail length")
     log(f"[phase 4] corpus: {len(files)} files ({len(blobs)} distinct, encoded on the card in "
         f"{time.perf_counter() - t0:.2f} s), {samples / 1e6:.3f} Msamples, {sum(map(len, files))} bytes")
-    return files, which, blobs, meta, samples
+    return dict(files=files, which=which, blobs=blobs, meta=meta, pcms=pcms, enc_s=enc_s, samples=samples)
 
 
-def corpus_path(result, rng):
+def corpus_path(result, corpus):
     """``decode_corpus`` at a real size, with the default routing and with
     the fused kernels off; every file's PCM equal to ``decode_sea``'s, and
-    that equal to the plain decode on the CPU for a sample of files."""
+    that equal to the plain decode on the CPU for a sample of files. Then
+    one more run with ``PIPELINE_TIMES`` set, for its stage report."""
     import torch
 
-    from sea_codec_torch import sea_decode
+    from sea_codec_torch import batch, sea_decode
     from sea_codec_torch.batch import decode_corpus
+    from sea_codec_torch.utils.profiling import StageTimes
 
-    files, which, blobs, meta, samples = make_corpus(rng)
+    files, which, blobs, meta, samples = (corpus[k] for k in ("files", "which", "blobs", "meta", "samples"))
     single = [sea_decode(b).samples for b in blobs]
     for k in (0, 4, 6, 7, 11, 13):  # a stereo, a 3-channel and the 255-channel file per mode
         check(np.array_equal(single[k], sea_decode(blobs[k], device="cpu").samples),
@@ -1095,6 +1163,181 @@ def corpus_path(result, rng):
             f"launches {counts}; card {result['card']}")
         result["main"][label] = {"decode_s": times[label], "msamples": samples / 1e6, "files": len(files)}
         del outs
+    batch.PIPELINE_TIMES = StageTimes()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = decode_corpus(files)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        report = batch.PIPELINE_TIMES
+    finally:
+        batch.PIPELINE_TIMES = None
+    check(all(np.array_equal(o.samples, single[k]) for o, k in zip(outs, which)), "attributed decode_corpus != decode_sea")
+    log(f"[phase 4] decode_corpus stages, default routing, PIPELINE_TIMES set (uploads synchronized), "
+        f"{wall:.4f} s; card {result['card']}:\n{report.report()}")
+    result["main"]["corpus"]["stages"] = dict(report)
+    result["main"]["corpus"]["stages_wall_s"] = wall
+
+
+def bench_corpus(n, seed0):
+    """bench.py's corpus shape: ``n`` varied stereo files of 7 to 8 chunks
+    (35,841-40,960 frames at 5,120 a chunk), lengths and content from
+    ``seed0`` on."""
+    from sea_codec_torch.utils.signal import varied_signal
+
+    lens = np.random.default_rng(seed0).integers(7 * 5120 + 1, 8 * 5120 + 1, size=n)
+    return [varied_signal(2, int(n_fr), seed=seed0 + i) for i, n_fr in enumerate(lens)]
+
+
+def expected_corpus_launches(frames, c, st):
+    """Search launches of one ``encode_corpus`` call: one a lane group for
+    CBR; for VBR two a chunk index up to the group's most full chunks, and
+    two more where the group has a ragged tail."""
+    from sea_codec_torch.batch import _lane_groups
+
+    fpc = st.frames_per_chunk
+    n = 0
+    for g in _lane_groups(frames, c, fpc):
+        fr = [frames[i] for i in g]
+        if max(fr) == 0:
+            continue
+        n += 2 * (max(fr) // fpc) + 2 * any(f % fpc for f in fr) if st.vbr else 1
+    return n
+
+
+def vbr_loop_never_waits():
+    """The corpus VBR loop over chunk index (``encode_file.corpus_vbr_nv``),
+    like the file's, never waits for the card: run on 4 stereo lanes of 3
+    chunks, one file a chunk short, under ``set_sync_debug_mode("error")``."""
+    import torch
+
+    from sea_codec_torch.models.vbr import interpolate_distribution, normalized_vbr_bitrate, vbr_base
+    from sea_codec_torch.ops import lms
+    from sea_codec_torch.ops.encode_file import corpus_vbr_nv
+
+    st = vbr_settings()
+    fpc, sff, sfb, c, nf = st.frames_per_chunk, st.scale_factor_frames, st.scale_factor_bits, 2, 4
+    target = normalized_vbr_bitrate(st.residual_bits, fpc, sfb, sff)
+    m1, _t, p1, p2 = interpolate_distribution(fpc * c // sff, target)
+    x = torch.randint(-20000, 20000, (3, fpc, nf * c), dtype=torch.int16, device="cuda")
+    frames = torch.tensor([3 * fpc] * 6 + [2 * fpc] * 2, dtype=torch.int32, device="cuda")
+    init = (lms.initial_history(c, "cuda").repeat(nf, 1), lms.initial_weights(c, "cuda").repeat(nf, 1),
+            torch.zeros(nf * c, dtype=torch.int32, device="cuda"))
+    kw = dict(scale_factor_frames=sff, scale_factor_bits=sfb, base=vbr_base(target), dist=(m1, p1, p2), n_files=nf)
+    corpus_vbr_nv(x, frames, *init, **kw)  # warm: the tables go to the card once
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = corpus_vbr_nv(x, frames, *init, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    # the short file's lanes carry their state through the masked chunk
+    check(torch.equal(out[5][6:], out[3][2, 6:]) and torch.equal(out[6][6:], out[4][2, 6:]),
+          "corpus VBR loop: a masked chunk moved a lane's carry")
+    log("[phase 4] the corpus VBR chunk loop ran without a host sync; a masked chunk left its lanes' carry")
+
+
+def corpus_encode_path(result, corpus):
+    """``encode_corpus`` on the card, both modes: (a) bench.py's corpus
+    shape, 256 stereo files CBR and 64 VBR, against per-file ``sea_encode``
+    on the card; (b) the decode corpus, one call per channel count
+    (repeats included), against the blobs ``make_corpus`` encoded per file.
+    Bytes equal; the search launched lane-packed (its count per call as
+    ``expected_corpus_launches`` says); the wall beside the summed per-file
+    walls, with ``PIPELINE_TIMES`` set (one lane group a call here, so the
+    synchronized upload costs no overlap)."""
+    import torch
+
+    from sea_codec_torch import EncoderSettings, batch, sea_encode
+    from sea_codec_torch.utils.profiling import StageTimes
+
+    def run_corpus(label, st, calls, per_file_s):
+        """``calls``: [(channels, files, expected bytes)]."""
+        reset_launch_counts()
+        batch.PIPELINE_TIMES = StageTimes()
+        walls, want_launches = [], 0
+        try:
+            for c, files, wants in calls:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs = batch.encode_corpus(files, CORPUS_RATE, c, st)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                want_launches += expected_corpus_launches([f.shape[0] // c for f in files], c, st)
+                for fi, (o, w) in enumerate(zip(outs, wants, strict=True)):
+                    check(o == w, f"{label}: file {fi} ({c} ch) != per-file sea_encode")
+            report = batch.PIPELINE_TIMES
+        finally:
+            batch.PIPELINE_TIMES = None
+        counts = launch_counts()
+        result["launches"][label] = counts
+        check(counts["window_search"] == want_launches,
+              f"{label}: {counts['window_search']} search launches, lane-packed needs {want_launches}")
+        samples = sum(f.size for _c, files, _w in calls for f in files)
+        wall = sum(walls)
+        log(f"[phase 4] encode_corpus {label}: {sum(len(f) for _c, f, _w in calls)} files, "
+            f"{samples / 1e6:.3f} Msamples in {wall:.4f} s ({samples / 1e6 / wall:.3f} Msamples/s; "
+            f"by call {[round(t, 4) for t in walls]}), bytes == per-file sea_encode, whose walls sum to "
+            f"{per_file_s:.4f} s; launches {counts} (lane-packed: {want_launches}); card {result['card']}; "
+            f"stages:\n{report.report()}")
+        result["main"][label] = {"encode_s": wall, "by_call_s": walls, "per_file_s": per_file_s,
+                                 "msamples": samples / 1e6, "stages": dict(report)}
+
+    vbr_loop_never_waits()
+    for label, st, n, seed0 in (("corpus_encode_cbr_a", EncoderSettings(), 256, 0),
+                                ("corpus_encode_vbr_a", vbr_settings(), 64, 50_000)):
+        files = bench_corpus(n, seed0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wants = [sea_encode(f, CORPUS_RATE, 2, st) for f in files]
+        torch.cuda.synchronize()
+        run_corpus(label, st, [(2, files, wants)], time.perf_counter() - t0)
+    for mode, st in (("cbr", EncoderSettings()), ("vbr", vbr_settings())):
+        calls, per_file_s = [], 0.0
+        for c in (2, 3, 255):
+            ks = [k for k in corpus["which"] if corpus["meta"][k][:2] == (mode, c)]
+            calls.append((c, [corpus["pcms"][k] for k in ks], [corpus["blobs"][k] for k in ks]))
+            per_file_s += sum(corpus["enc_s"][k] for k in ks)
+        run_corpus(f"corpus_encode_{mode}_b", st, calls, per_file_s)
+
+
+def transcode_path(result, enc, enc_vbr):
+    """The main-path files' full-chunk rows, [1550, chunk_size] on the card,
+    decoded without leaving it (``parse_device``): PCM equal to
+    ``decode_sea``'s, and no wait for the card (so no device-to-host copy)
+    before the result (``torch.cuda.set_sync_debug_mode("error")``)."""
+    import torch
+
+    from sea_codec_torch import sea_decode
+    from sea_codec_torch.batch import split_chunks
+    from sea_codec_torch.ops.parse_device import decode_rows_vbr_device, transcode_chunks_cbr_device
+
+    for label, blob, fn in (("transcode_cbr", enc, transcode_chunks_cbr_device),
+                            ("transcode_vbr", enc_vbr, decode_rows_vbr_device)):
+        header, rect, _tail = split_chunks(blob)
+        n, fpc, c = rect.shape[0], header.frames_per_chunk, header.channels
+        want = sea_decode(blob).samples[: n * fpc * c].reshape(n, fpc, c)
+        rows = torch.from_numpy(rect.copy()).cuda()
+        args = (rows, c, int(rect[0, 1]) >> 4, int(rect[0, 2]), int(rect[0, 1]) & 15, fpc)
+        fn(*args)  # warm: the tables go to the card once
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            out = fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        result["launches"][label] = counts
+        check(np.array_equal(out.cpu().numpy(), want), f"{label}: PCM != decode_sea")
+        log(f"[phase 4] {label}: rows {list(rect.shape)} -> PCM {[n, fpc, c]} on the card in {wall * 1e3:.3f} ms, "
+            f"== decode_sea, no host sync before the result; launches {counts}; card {result['card']}")
+        result["main"][label] = {"s": wall}
 
 
 SESSION_FRAMES = 100 * 5120 + 1777
@@ -1396,6 +1639,61 @@ def vbr_search_at_main_shape(pcm, enc, result, clock_mhz):
     }
 
 
+def search_occupancy():
+    """Blocks of each search form the corpus encode launches that one SM
+    holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor), at the default
+    settings and the VBR main path's sizes (base 2: pass 1 at 3, pass 2
+    over 1..4), and the per-window form with every size's rows staged."""
+    import ctypes
+
+    from sea_codec_torch.ops import cuda_build, tables
+    from sea_codec_torch.ops.window_search import _table_rows
+
+    fn = cuda_build.load("window_search").sea_window_search_blocks_per_sm
+    fn.argtypes = [ctypes.c_int] * 7
+    fn.restype = ctypes.c_int
+    s, sff = 16, 20
+    out = {}
+    for name, var_rs, ranks_only, rng_ in (("cbr rs 3", 0, 0, (3, 3)), ("ranks-only rs 3", 0, 1, (3, 3)),
+                                          ("per-window 1..4", 1, 0, (1, 4)), ("per-window 1..8", 1, 0, (1, 8))):
+        rows = _table_rows(s, sff, bool(ranks_only), rng_)
+        out[name] = fn(var_rs, int(rows > 0), s, sff, ranks_only, tables.QUANT_TAB_SIZE, rows)
+        check(out[name] > 0, f"occupancy query failed for {name}")
+    return out
+
+
+def search_lane_times(result):
+    """The per-window-size form at 132, 264 and 528 lanes of one chunk
+    (256 windows of 20 frames, sfb 4, sizes 1..4) with every size's table
+    rows staged (the parent's launch) and with only 1..4's, in turns
+    (all, staged, staged, all); outputs equal."""
+    import torch
+
+    from sea_codec_torch.ops.window_search import window_search
+
+    rng = np.random.default_rng(132)
+    times = {}
+    for lanes in (132, 264, 528):
+        x = torch.from_numpy(stress_signal(rng, 5120, lanes)).cuda()
+        sizes = torch.from_numpy(rng.integers(1, 5, (256, lanes)).astype(np.uint8)).cuda()
+        init = (torch.zeros((lanes, 4), dtype=torch.int32, device="cuda"),
+                torch.from_numpy(rng.integers(-(1 << 14), 1 << 14, (lanes, 4)).astype(np.int32)).cuda(),
+                torch.zeros(lanes, dtype=torch.int32, device="cuda"))
+        kw = dict(sfb=4, sff=20, wpc=256, rs=sizes)
+        run = lambda r: window_search(x, None, *init, rs_range=r, **kw)
+        got = {}
+        ms = {"all": [], "staged": []}
+        for label, r in (("all", (1, 8)), ("staged", (1, 4)), ("staged", (1, 4)), ("all", (1, 8))):
+            t, got[label] = cuda_ms(lambda: run(r), reps=5)
+            ms[label].append(t)
+        worst_of(got["staged"], got["all"], f"per-window form at {lanes} lanes: staged rows != all rows")
+        times[lanes] = ms
+    occ = search_occupancy()
+    log(f"[phase 5] window_search per-window form, one chunk [5120, lanes] at sfb 4, ms in turns "
+        f"(all rows staged / 1..4 staged): {times}; blocks an SM holds: {occ}; card {result['card']}")
+    return {"lane_sweep_ms": times, "blocks_per_sm": occ}
+
+
 def two_kernel_at_main_shape(enc, enc_vbr, result, here):
     """The two-kernel decode's kernels on the main paths' full chunks
     [1550, 5120, 2]: each equal to its plain version, with its time (and one
@@ -1495,6 +1793,7 @@ def run(here):
 
     from sea_codec_torch import EncoderSettings
     from sea_codec_torch.ops import cuda_build
+    from sea_codec_torch.ops.serialize_device import cbr_chunk_size
 
     result = {"launches": {}, "main": {}}
     t0 = time.perf_counter()
@@ -1507,7 +1806,7 @@ def run(here):
     errs = {
         "fused_decode_cbr": max(decode_sweep(rng), dequant_exhaustive()),
         "fused_decode_vbr": max(vbr_decode_sweep(rng), vbr_dequant_exhaustive()),
-        "window_search": max(search_sweep(rng), search_sweep_vbr(rng)),
+        "window_search": max(search_sweep(rng), search_sweep_vbr(rng), search_sweep_lanes(rng)),
         "lms_decode": lms_sweep(rng),
     }
     errs["dequant_cbr"], errs["dequant_vbr"] = dequant_sweeps(rng)
@@ -1517,12 +1816,15 @@ def run(here):
     fixtures(here, rng)
     pcm = music_signal(MAIN_FRAMES, seed=2024)
     c = MAIN_CHANNELS
-    enc = main_path(result, pcm, "cbr", EncoderSettings(),
-                    4 + 16 * c + (256 * c * 4 + 7) // 8 + 5120 * c * 3 // 8,
+    enc = main_path(result, pcm, "cbr", EncoderSettings(), cbr_chunk_size(c, 5120, 4, 20, 3),
                     ("fused_decode_cbr", "window_search"))
     enc_vbr = main_path(result, pcm, "vbr", vbr_settings(), vbr_chunk_size(vbr_settings(), c),
                         ("fused_decode_vbr", "window_search_full", "window_search_ranks_only"))
-    corpus_path(result, rng)
+    corpus = make_corpus(rng)
+    corpus_path(result, corpus)
+    corpus_encode_path(result, corpus)
+    del corpus
+    transcode_path(result, enc, enc_vbr)
     session_path(result)
     clock_mhz = float(smi("clocks.max.sm", ",nounits"))
     kernels = []
@@ -1541,6 +1843,7 @@ def run(here):
             + (f"; chain by the earlier kernel's model {k['chain_ms_before']:.4f} ms"
                if "chain_ms_before" in k else ""))
     err, kernels[-1]["vbr"] = vbr_search_at_main_shape(pcm, enc_vbr, result, clock_mhz)
+    kernels[-1].update(search_lane_times(result))
     kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"], err)
     log("[phase 5] kernels: " + ", ".join(
         f"{k['name']} launches={k['launches']} equal to plain: true" for k in kernels))

@@ -70,9 +70,17 @@
 // quantizer, and the unrolled loop. Rank, argmin and state math are the same
 // in every form. Arithmetic follows the reference's integer widths: sea_div
 // in int64, the rank in wrapping u64, the int32 LMS dot and weight updates
-// wrapping (computed in uint32). An optional per-window valid-frame count
-// masks ragged tail windows: masked steps add no rank and leave the LMS
-// frozen, while their codes are still computed, as in the reference kernels.
+// wrapping (computed in uint32). An optional valid-frame count per window,
+// shared by every channel or one per (window, channel) (the corpus encode's
+// lanes are files x channels, each with its own length), masks ragged and
+// padding windows: masked steps add no rank and leave the LMS frozen, while
+// their codes are still computed, as in the reference kernels. A fully
+// masked window ranks every candidate 0, so the rotated argmin keeps the
+// previous winner and the lane's carry passes through unchanged.
+//
+// With per-window sizes a launch stages only the table rows of the sizes it
+// can meet (rs_lo..rs_hi, which the caller knows: VBR assigns base-1..base+2),
+// so a block's shared memory stays a few KB and many lanes share an SM.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -196,7 +204,7 @@ __device__ __forceinline__ unsigned long long squared(int32_t err) {  // |err| <
 template <bool kVarRs, bool kRanksOnly, int kMode>
 __global__ void __launch_bounds__(256) window_search_kernel(
     const int16_t* __restrict__ samples,  // [nw*sff, c] interleaved PCM
-    const int32_t* __restrict__ n_valid,  // [nw] valid frames, or nullptr
+    const int32_t* __restrict__ n_valid,  // [nw] or [nw, c] valid frames, or nullptr
     const uint8_t* __restrict__ rs_in,    // [nw, c] sizes (kVarRs only)
     const int32_t* __restrict__ hist_in,  // [c, 4]
     const int32_t* __restrict__ wts_in,   // [c, 4]
@@ -215,7 +223,8 @@ __global__ void __launch_bounds__(256) window_search_kernel(
     int32_t* __restrict__ hist_out,       // [c, 4]
     int32_t* __restrict__ wts_out,        // [c, 4]
     int32_t* __restrict__ prev_out,       // [c]
-    int c, int s, int sff, int nw, int wpc, int rs_const, int qtab_len, int tab_rows) {
+    int c, int s, int sff, int nw, int wpc, int rs_lo, int rs_hi, int nv_stride, int qtab_len,
+    int tab_rows) {
   constexpr bool kTable = kMode != 0;
   constexpr bool kFast = kMode == 2;
   constexpr int kPre = kFast ? 1 : kPrefetch;
@@ -268,16 +277,18 @@ __global__ void __launch_bounds__(256) window_search_kernel(
   __syncthreads();
 
   // the residual size's constants, in registers for the sample loop; a size
-  // outside 1..8 would index past the staged tables
+  // outside rs_lo..rs_hi would index past the staged tables
   Size<kTable> z;
+  const int row_base = (4 << rs_lo) + rs_lo - 9;  // the first staged size's first row
   auto load_size = [&](int rs_raw) {
-    const int rs = min(max(rs_raw, 1), 8);
+    const int rs = min(max(rs_raw, rs_lo), rs_hi);
     z.recip14 = recip_s[rs * s + cand];
     z.climit = 1 << rs;
     if constexpr (kTable) {
       // row of a zero half-step quotient: the size's offset (2^(rs+2) + rs
-      // - 9 rows before it when all sizes are staged) plus 2*climit
-      const int row0 = kVarRs ? (4 << rs) + rs - 9 : 0;
+      // - 9 rows in the table of all sizes) past the first staged row, plus
+      // 2*climit
+      const int row0 = (4 << rs) + rs - 9 - row_base;
       z.tab0 = 4 * ((row0 + 2 * z.climit) * s + cand);
     } else {
       z.sfval = sfval_s[rs * s + cand];
@@ -288,7 +299,7 @@ __global__ void __launch_bounds__(256) window_search_kernel(
       z.qt0 = ints_s[9 + rs] + z.climit;
     }
   };
-  if (!kVarRs) load_size(rs_const);
+  if (!kVarRs) load_size(rs_lo);
 
   // each window's inputs and outputs sit a constant stride after the last
   // window's: running pointers, no 64-bit multiply per window
@@ -297,7 +308,9 @@ __global__ void __launch_bounds__(256) window_search_kernel(
   uint8_t* codes_w = kRanksOnly ? nullptr : codes_out + ch;        // window wi's codes
   uint8_t* sf_w = sf_out + ch;
   unsigned long long* rank_w = ranks_out + ch;
-  int nv_next = n_valid ? n_valid[0] : sff;
+  // this lane's valid counts: a window's count sits nv_stride after the last's
+  const int32_t* nv_w = n_valid == nullptr ? nullptr : n_valid + (nv_stride == 1 ? 0 : ch);
+  int nv_next = nv_w ? nv_w[0] : sff;
   int rs_next = kVarRs ? rs_in[ch] : 0;
   int to_chunk = 0;  // windows until the next chunk-entry snapshot
   for (int wi = 0; wi < nw; ++wi) {
@@ -314,7 +327,10 @@ __global__ void __launch_bounds__(256) window_search_kernel(
         const int t = i * bd + tid;
         pre[i] = t < sff ? smp_next[static_cast<size_t>(t) * c] : int16_t(0);
       }
-      if (n_valid) nv_next = n_valid[wi + 1];
+      if (nv_w) {
+        nv_w += nv_stride;
+        nv_next = *nv_w;
+      }
       if (kVarRs) rs_next = rs_in[static_cast<size_t>(wi + 1) * c + ch];
     }
     if (to_chunk == 0) {
@@ -481,34 +497,48 @@ KernelFn pick_form(bool var_rs, bool ranks_only) {
                               : window_search_kernel<false, false, kMode>);
 }
 
+// The form, block size and dynamic shared memory of a launch, and the error
+// of asking for that shared memory.
+struct Launch {
+  KernelFn kernel;
+  int threads;
+  size_t smem;
+  cudaError_t err;
+};
+
+Launch pick_launch(bool var_rs, bool tab, int s, int sff, int ranks_only, int qtab_len, int tab_rows) {
+  const KernelFn kernel = !tab              ? pick_form<0>(var_rs, ranks_only)
+                          : sff == kFastSff ? pick_form<2>(var_rs, ranks_only)
+                                            : pick_form<1>(var_rs, ranks_only);
+  // layout: the table [tab_rows, s], or sfval [9, s] + curve [27] + ints [18]
+  // and the zig-zag tables; then recip [9, s], two windows of samples (4-byte
+  // words), and the [sff, s] code buffer. The kernel's static 256 bytes count
+  // against the block's limit as well: the wrapper's check leaves them room.
+  const size_t quantizer = tab ? sizeof(int32_t) * tab_rows * s
+                               : sizeof(int32_t) * (9 * s + 45) + qtab_len;
+  const size_t smem = quantizer + sizeof(int32_t) * (9 * s + 2 * sff) +
+                      (ranks_only ? 0 : static_cast<size_t>(sff) * s);
+  return Launch{kernel, s < 32 ? 32 : s, smem, sea_launch::allow_smem(kernel, smem)};
+}
+
 }  // namespace
 
-// `tab` is the staged table's first row ([tab_rows, s]: one size's rows, or
-// all sizes' with per-window sizes), or null for the arithmetic quantizer.
+// `tab` is the staged table's first row ([tab_rows, s]: the rows of sizes
+// rs_lo..rs_hi, one size's for a constant size rs_lo == rs_hi), or null for
+// the arithmetic quantizer. `n_valid` is [nw] (nv_stride 1) or [nw, c]
+// (nv_stride c).
 extern "C" int sea_window_search(
     const void* samples, const void* n_valid, const void* rs_in,
     const void* hist_in, const void* wts_in, const void* prev_in,
     const void* sfval, const void* recip, const void* curve, const void* ints,
     const void* qtab, const void* tab, void* sf_out, void* codes_out,
     void* ranks_out, void* ehist, void* ewts, void* hist_out, void* wts_out,
-    void* prev_out, int c, int s, int sff, int nw, int wpc, int rs_const,
-    int ranks_only, int qtab_len, int tab_rows, void* stream) {
-  const bool var_rs = rs_in != nullptr;
-  const KernelFn kernel = tab == nullptr     ? pick_form<0>(var_rs, ranks_only)
-                          : sff == kFastSff ? pick_form<2>(var_rs, ranks_only)
-                                            : pick_form<1>(var_rs, ranks_only);
-  const int threads = s < 32 ? 32 : s;
-  // layout: the table [tab_rows, s], or sfval [9, s] + curve [27] + ints [18]
-  // and the zig-zag tables; then recip [9, s], two windows of samples (4-byte
-  // words), and the [sff, s] code buffer. The kernel's static 256 bytes count
-  // against the block's limit as well: the wrapper's check leaves them room.
-  const size_t quantizer = tab != nullptr ? sizeof(int32_t) * tab_rows * s
-                                          : sizeof(int32_t) * (9 * s + 45) + qtab_len;
-  const size_t smem = quantizer + sizeof(int32_t) * (9 * s + 2 * sff) +
-                      (ranks_only ? 0 : static_cast<size_t>(sff) * s);
-  const cudaError_t err = sea_launch::allow_smem(kernel, smem);
+    void* prev_out, int c, int s, int sff, int nw, int wpc, int rs_lo, int rs_hi,
+    int nv_stride, int ranks_only, int qtab_len, int tab_rows, void* stream) {
+  const Launch l = pick_launch(rs_in != nullptr, tab != nullptr, s, sff, ranks_only, qtab_len, tab_rows);
+  const cudaError_t err = l.err;
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<c, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  l.kernel<<<c, l.threads, l.smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int16_t*>(samples), static_cast<const int32_t*>(n_valid),
       static_cast<const uint8_t*>(rs_in), static_cast<const int32_t*>(hist_in),
       static_cast<const int32_t*>(wts_in), static_cast<const int32_t*>(prev_in),
@@ -519,6 +549,20 @@ extern "C" int sea_window_search(
       static_cast<unsigned long long*>(ranks_out), static_cast<int32_t*>(ehist),
       static_cast<int32_t*>(ewts), static_cast<int32_t*>(hist_out),
       static_cast<int32_t*>(wts_out), static_cast<int32_t*>(prev_out), c, s,
-      sff, nw, wpc, rs_const, qtab_len, tab_rows);
+      sff, nw, wpc, rs_lo, rs_hi, nv_stride, qtab_len, tab_rows);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of the launch these arguments select that one SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1 on an error.
+extern "C" int sea_window_search_blocks_per_sm(int var_rs, int tab, int s, int sff, int ranks_only,
+                                               int qtab_len, int tab_rows) {
+  const Launch l = pick_launch(var_rs != 0, tab != 0, s, sff, ranks_only, qtab_len, tab_rows);
+  if (l.err != cudaSuccess) return -1;
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, l.kernel, l.threads, l.smem) != cudaSuccess) {
+    cudaGetLastError();
+    return -1;
+  }
+  return blocks;
 }

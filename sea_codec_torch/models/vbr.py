@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.encode_file import vbr_sizes
+from ..ops.encode_file import vbr_size_range, vbr_sizes
 from ..ops.tables import LMS_LEN
 from ..ops.window_search import window_search
 from .common import EncodedSamples, EncoderBaseState
@@ -156,7 +156,7 @@ class VbrEncoderModel:
 
         # pass 2: encode with the assigned sizes
         sf, codes, _ranks, _eh, _ew, hist2, wts2, prev2 = window_search(
-            x_d, nv_d, hist, wts, prev1, rs=sizes, **kw
+            x_d, nv_d, hist, wts, prev1, rs=sizes, rs_range=vbr_size_range(base), **kw
         )
         self.state = EncoderBaseState(hist2, wts2, prev2)
         return EncodedSamples(

@@ -89,7 +89,7 @@ def unpack_const(data: torch.Tensor, width: int, count: int) -> torch.Tensor:
     n, b = data.shape
     bit = torch.arange(count, device=data.device, dtype=torch.int64) * width
     idx = bit >> 3
-    need = int(idx[-1]) + 2 if count else 0
+    need = ((count - 1) * width >> 3) + 2 if count else 0  # from host ints: no wait for the card
     d = data.to(torch.int64)
     if b < need:
         d = torch.nn.functional.pad(d, (0, need - b))

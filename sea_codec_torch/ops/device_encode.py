@@ -41,7 +41,9 @@ def encode_windows_fn(
     """Run the scale-factor search over consecutive windows of one chunk.
 
     ``samples`` [W*sff, C] (any integer dtype), ``n_valid`` a sequence of W
-    host ints (valid frames per window), ``hist0``/``wts0`` int32[C, 4],
+    host ints (valid frames per window, shared by every channel) or an
+    integer tensor [W, C] (one count per window and channel: each channel
+    a lane of its own, as in the corpus encode), ``hist0``/``wts0`` int32[C, 4],
     ``prev_sf0`` int32[C]; ``rs`` is the residual size, an int (CBR, VBR
     pass 1) or an integer tensor [W, C] of per-(window, channel) sizes 1..8
     (VBR pass 2). Returns (sf uint8[W, C], codes uint8[W*sff, C], ranks
@@ -66,6 +68,9 @@ def encode_windows_fn(
     hist = hist0.to(torch.int64)
     wts = wts0.to(torch.int64)
     prev = prev_sf0.to(torch.int64)
+    per_lane = torch.is_tensor(n_valid)
+    if per_lane:
+        nv_lane = n_valid.to(device=device, dtype=torch.int64)
     sf_out, codes_out, ranks_out = [], [], []
     for wi in range(w):
         # this window's constants per channel: tables rows [C, S] -> [S, C]
@@ -85,13 +90,21 @@ def encode_windows_fn(
             scaled = sea_div(smp - pred, recip)
             q = qtab[torch.minimum(torch.maximum(scaled, -climit), climit) + qbase]
             qs.append(q)
-            if t >= n_valid[wi]:
+            if not per_lane and t >= n_valid[wi]:
                 continue  # masked step: codes only, state frozen
             dq = dequant_values(q, sfval, *consts)
             recon = lms.clamp_i16(pred + dq)
             err = smp - recon
-            rank = rank + err * err + lms.weights_penalty(ww)
-            hh, ww = lms.update(hh, ww, recon, dq)
+            inc = err * err + lms.weights_penalty(ww)
+            h2, w2 = lms.update(hh, ww, recon, dq)
+            if per_lane:  # masked lanes: codes only, state frozen
+                valid = t < nv_lane[wi]  # [C]
+                rank = torch.where(valid, rank + inc, rank)
+                hh = torch.where(valid[:, None], h2, hh)
+                ww = torch.where(valid[:, None], w2, ww)
+            else:
+                rank = rank + inc
+                hh, ww = h2, w2
         # first minimum in rotated order: lexicographic (unsigned rank, rot)
         key = rank ^ _SIGN64
         tie = key == key.min(dim=0).values

@@ -54,6 +54,17 @@ def lms_section_device(ehist: torch.Tensor, ewts: torch.Tensor) -> torch.Tensor:
     return byts.reshape(lms.shape[0], -1).to(torch.uint8)
 
 
+def cbr_chunk_size(
+    channels: int, frames: int, scale_factor_bits: int, scale_factor_frames: int,
+    residual_size: int,
+) -> int:
+    """Serialized byte length of a CBR chunk with ``frames`` frames."""
+    w = -(-frames // scale_factor_frames)
+    sf_bytes = -(-(w * channels * scale_factor_bits) // 8)
+    res_bytes = -(-(frames * channels * residual_size) // 8)
+    return 4 + 16 * channels + sf_bytes + res_bytes
+
+
 def serialize_chunks_cbr_device(
     sf: torch.Tensor,  # uint8[R, W, C]
     codes: torch.Tensor,  # uint8[R, F, C]
@@ -85,3 +96,29 @@ def serialize_chunks_cbr_device(
         pack_bits_rows_device(codes.reshape(r, f * c), residual_size),
     ]
     return torch.cat(parts, dim=1)
+
+
+def corpus_rows_cbr_device(
+    sf: torch.Tensor,  # uint8[NC, W, B] lane-packed (B = n_files * C)
+    codes: torch.Tensor,  # uint8[NC, F, B]
+    ehist: torch.Tensor,  # int32[NC, B, 4]
+    ewts: torch.Tensor,  # int32[NC, B, 4]
+    n_files: int,
+    scale_factor_bits: int,
+    scale_factor_frames: int,
+    residual_size: int,
+) -> torch.Tensor:
+    """Lane-packed corpus encoder outputs (lane = file * C + channel) ->
+    per-file container rows uint8[n_files, NC, chunk_size]."""
+    nc, w, b = sf.shape
+    f = codes.shape[1]
+    nf = n_files
+    c = b // nf
+    sf_r = sf.reshape(nc, w, nf, c).permute(2, 0, 1, 3).reshape(nf * nc, w, c)
+    codes_r = codes.reshape(nc, f, nf, c).permute(2, 0, 1, 3).reshape(nf * nc, f, c)
+    eh_r = ehist.reshape(nc, nf, c, 4).permute(1, 0, 2, 3).reshape(nf * nc, c, 4)
+    ew_r = ewts.reshape(nc, nf, c, 4).permute(1, 0, 2, 3).reshape(nf * nc, c, 4)
+    rows = serialize_chunks_cbr_device(
+        sf_r, codes_r, eh_r, ew_r, scale_factor_bits, scale_factor_frames, residual_size,
+    )
+    return rows.reshape(nf, nc, -1)

@@ -282,11 +282,15 @@ SEARCH_TAB_ROWS = 4 * 510 + 8  # = 2048
 
 def search_table_rows(residual_size) -> tuple[int, int]:
     """(first row, rows) of ``search_table`` that a launch stages: one
-    residual size's rows, or every row when ``residual_size`` is None (sizes
-    per window)."""
+    residual size's rows (an int), the rows of the sizes ``lo..hi`` (a pair:
+    per-window sizes known to lie in that range), or every row (None). A
+    size's rows follow the last size's: size ``rs`` starts at row
+    ``2^(rs+2) + rs - 9`` and has ``2^(rs+2) + 1``."""
     if residual_size is None:
         return 0, SEARCH_TAB_ROWS
-    return (4 << residual_size) + residual_size - 9, (4 << residual_size) + 1
+    lo, hi = (residual_size, residual_size) if isinstance(residual_size, int) else residual_size
+    first = (4 << lo) + lo - 9
+    return first, (8 << hi) + hi - 8 - first
 
 
 @lru_cache(maxsize=None)

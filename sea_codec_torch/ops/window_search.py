@@ -18,9 +18,18 @@ state snapshots. ``launches`` counts kernel launches, and
 ``ranks_only_launches`` those of them in the ranks-only form.
 
 The residual size ``rs`` is an int (CBR, and VBR pass 1 at ``base+1``) or
-a tensor uint8/int32[W, C] of per-(window, channel) sizes 1..8 (VBR pass 2).
-With ``ranks_only`` (VBR pass 1, which reads only ranks and state) the
-winner's codes are not kept: the codes output is None.
+a tensor uint8/int32[W, C] of per-(window, channel) sizes (VBR pass 2),
+which lie in ``rs_range`` = (lo, hi), host ints the caller knows (VBR
+assigns base-1..base+2; 1..8 by default): the kernel stages only those
+sizes' table rows, a few KB a block instead of 128 KB at sfb 4, so that
+many lanes share an SM. With ``ranks_only`` (VBR pass 1, which reads only
+ranks and state) the winner's codes are not kept: the codes output is None.
+
+``n_valid`` masks windows: None (all full), int32[W] valid frames shared
+by every channel, or int32[W, C], one count per (window, lane). The
+corpus encode packs files x channels into the lanes of one launch, each
+lane with its own length; the number of lanes is not bounded by the
+format's 255 channels.
 
 Both return ``(sf uint8[W, C], codes uint8[W*sff, C] | None, ranks
 int64[W, C], ehist int32[NC, C, 4], ewts int32[NC, C, 4], hist int32[C, 4],
@@ -44,11 +53,20 @@ ranks_only_launches = 0
 
 
 def window_search_plain(
-    samples, n_valid, hist0, wts0, prev0, *, sfb, rs, sff, wpc, ranks_only=False
+    samples, n_valid, hist0, wts0, prev0, *, sfb, rs, sff, wpc, ranks_only=False, rs_range=(1, 8)
 ):
     """Plain PyTorch version of the kernel: same inputs, same outputs."""
     nw = samples.shape[0] // sff
-    nv = [sff] * nw if n_valid is None else [int(v) for v in n_valid.tolist()]
+    if n_valid is None:
+        nv = [sff] * nw
+    elif n_valid.dim() == 1:  # host ints: the shared form's loop skips masked steps
+        nv = [int(v) for v in n_valid.tolist()]
+    else:
+        nv = n_valid
+    if torch.is_tensor(rs) and rs.numel():
+        lo, hi = rs_range
+        if int(rs.min()) < lo or int(rs.max()) > hi:
+            raise ValueError(f"sizes outside the staged range {lo}..{hi}")
     hist, wts, prev = hist0, wts0, prev0
     outs, ehist, ewts = [], [], []
     for start in range(0, nw, wpc):
@@ -87,9 +105,10 @@ def _smem_bytes(s, sff, ranks_only, table_rows):
 
 
 def _table_rows(s, sff, ranks_only, rs):
-    """Rows of the lookup table the launch stages (``rs`` an int, or None for
-    per-window sizes), or 0 where the table does not fit shared memory and
-    the kernel takes its arithmetic form. Raises where that does not fit."""
+    """Rows of the lookup table the launch stages (``rs`` an int, a (lo, hi)
+    range of per-window sizes, or None for all sizes), or 0 where the table
+    does not fit shared memory and the kernel takes its arithmetic form.
+    Raises where that does not fit."""
     rows = tables.search_table_rows(rs)[1]
     limit = cuda_build.SMEM_LIMIT - _STATIC_SMEM
     if _smem_bytes(s, sff, ranks_only, rows) <= limit:
@@ -100,14 +119,14 @@ def _table_rows(s, sff, ranks_only, rs):
 
 
 def window_search(
-    samples, n_valid, hist0, wts0, prev0, *, sfb, rs, sff, wpc, ranks_only=False
+    samples, n_valid, hist0, wts0, prev0, *, sfb, rs, sff, wpc, ranks_only=False, rs_range=(1, 8)
 ):
     """Search every window of ``samples`` int16[W*sff, C] in order.
 
-    ``n_valid`` is None (every window full) or int32[W] valid frames per
-    window; ``hist0``/``wts0`` int32[C, 4] and ``prev0`` int32[C] are the
-    entry state; ``rs`` is described in the module docstring. Returns the
-    tuple described there."""
+    ``n_valid`` is None (every window full), int32[W] or int32[W, C] valid
+    frames; ``hist0``/``wts0`` int32[C, 4] and ``prev0`` int32[C] are the
+    entry state; ``rs`` and ``rs_range`` are described in the module
+    docstring. Returns the tuple described there."""
     global launches, ranks_only_launches
     device = samples.device
     c = samples.shape[1]
@@ -115,8 +134,8 @@ def window_search(
     per_window = torch.is_tensor(rs)
     if not (1 <= sfb <= 8 and sff >= 1 and wpc >= 1):
         raise ValueError(f"bad search config sfb={sfb} sff={sff} wpc={wpc}")
-    if samples.dim() != 2 or samples.shape[0] % sff or not 1 <= c <= 255:
-        raise ValueError(f"samples must be [W*sff, C<=255], got {tuple(samples.shape)}")
+    if samples.dim() != 2 or samples.shape[0] % sff or c < 1:
+        raise ValueError(f"samples must be [W*sff, C], got {tuple(samples.shape)}")
     nw = samples.shape[0] // sff
     for name, t in (("hist0", hist0), ("wts0", wts0), ("prev0", prev0)):
         if t.dtype != torch.int32 or t.device != device:
@@ -124,19 +143,22 @@ def window_search(
     if hist0.shape != (c, 4) or wts0.shape != (c, 4) or prev0.shape != (c,):
         raise ValueError("hist0/wts0 must be [C, 4] and prev0 [C]")
     if n_valid is not None and (
-        n_valid.shape != (nw,) or n_valid.dtype != torch.int32 or n_valid.device != device
+        n_valid.shape not in ((nw,), (nw, c)) or n_valid.dtype != torch.int32 or n_valid.device != device
     ):
-        raise ValueError(f"n_valid must be int32[{nw}] on {device}")
+        raise ValueError(f"n_valid must be int32[{nw}] or int32[{nw}, {c}] on {device}")
     if per_window:
         if rs.shape != (nw, c) or rs.dtype not in (torch.uint8, torch.int32) or rs.device != device:
             raise ValueError(f"rs must be uint8/int32[{nw}, {c}] on {device}")
-    elif not 1 <= rs <= 8:
-        raise ValueError(f"bad residual size {rs}")
-    table_rows = _table_rows(s, sff, ranks_only, None if per_window else int(rs))
+        lo, hi = rs_range
+    else:
+        lo = hi = int(rs)
+    if not 1 <= lo <= hi <= 8:
+        raise ValueError(f"bad residual size {rs} or range {rs_range}")
+    table_rows = _table_rows(s, sff, ranks_only, (lo, hi))
     if device.type == "cpu":
         return window_search_plain(
             samples, n_valid, hist0, wts0, prev0,
-            sfb=sfb, rs=rs, sff=sff, wpc=wpc, ranks_only=ranks_only,
+            sfb=sfb, rs=rs, sff=sff, wpc=wpc, ranks_only=ranks_only, rs_range=(lo, hi),
         )
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
@@ -162,7 +184,7 @@ def window_search(
     hist0, wts0, prev0 = hist0.contiguous(), wts0.contiguous(), prev0.contiguous()
     tab = None
     if table_rows:
-        first = tables.search_table_rows(None if per_window else int(rs))[0]
+        first = tables.search_table_rows((lo, hi))[0]
         tab = tables.search_kernel_table(sfb, device)[first : first + table_rows]
     fn = _launcher()
     ptr = lambda t: None if t is None else t.data_ptr()
@@ -173,8 +195,8 @@ def window_search(
             sfval.data_ptr(), recip.data_ptr(), curve.data_ptr(), ints.data_ptr(),
             qtab.data_ptr(), ptr(tab), sf.data_ptr(), ptr(codes), ranks.data_ptr(),
             ehist.data_ptr(), ewts.data_ptr(), hist.data_ptr(), wts.data_ptr(),
-            prev.data_ptr(), c, s, sff, nw, wpc, 0 if per_window else int(rs),
-            int(ranks_only), qtab.numel(), table_rows, stream,
+            prev.data_ptr(), c, s, sff, nw, wpc, lo, hi,
+            1 if nv is None or nv.dim() == 1 else c, int(ranks_only), qtab.numel(), table_rows, stream,
         )
     cuda_build.check(rc, "sea_window_search")
     launches += 1
@@ -185,6 +207,6 @@ def window_search(
 def _launcher():
     fn = cuda_build.load("window_search").sea_window_search
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 20 + [i] * 9 + [p]
+    fn.argtypes = [p] * 20 + [i] * 11 + [p]
     fn.restype = ctypes.c_int
     return fn

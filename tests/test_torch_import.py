@@ -69,11 +69,13 @@ def test_smoke_script_imports_no_jax():
 
 @pytest.mark.parametrize(
     "module",
-    ["decoder", "encoder", "ops.lms_decode", "ops.dequant", "utils.io", "utils.wav", "utils.signal"],
+    ["decoder", "encoder", "ops.lms_decode", "ops.dequant", "utils.io", "utils.wav", "utils.signal",
+     "ops.parse_device", "utils.profiling", "ops.encode_file"],
 )
 def test_new_modules_import_alone(module):
-    """Each module of the two-kernel decode and the sessions imports in a
-    fresh interpreter without pulling in JAX or the JAX package."""
+    """Each module of the two-kernel decode, the sessions, the corpus encode
+    and the device parse imports in a fresh interpreter without pulling in
+    JAX or the JAX package."""
     code = (
         f"import sys, sea_codec_torch.{module}\n"
         f"print([m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}])\n"
@@ -293,21 +295,37 @@ def test_decode_entries_default_to_cuda(entry):
     assert (fused_decode.launches, dequant.cbr_launches, lms_decode.launches) == before
 
 
-@pytest.mark.parametrize("entry", ["encode", "decode"])
+@pytest.mark.parametrize(
+    "entry", ["encode", "decode", "encode_corpus", "transcode_chunks_cbr_device", "decode_rows_vbr_device"]
+)
 def test_entry_points_default_to_cuda(entry):
     """Without ``device=`` the entry points target the card: on a host with
-    no GPU they raise rather than run on the CPU."""
-    from sea_codec_torch import EncoderSettings, sea_decode, sea_encode
+    no GPU they raise rather than run on the CPU. The device decoders of
+    ``parse_device`` take rows already on a device and decode there: given
+    CPU rows (the caller's choice) they run the plain versions and count no
+    kernel launch."""
+    from sea_codec_torch import EncoderSettings, batch, sea_decode, sea_encode
+    from sea_codec_torch.ops import fused_decode, fused_decode_vbr, parse_device
     from sea_codec_torch.utils.device import resolve_device
 
     assert resolve_device(None).type == "cuda" if torch.cuda.is_available() else True
+    pcm = np.arange(64, dtype=np.int16)
+    st = EncoderSettings(frames_per_chunk=32, scale_factor_frames=8, vbr=entry == "decode_rows_vbr_device")
+    encoded = sea_encode(pcm, 8000, 1, st, device="cpu")
+    if entry.endswith("_device"):
+        header, rect, _tail = batch.split_chunks(encoded)
+        before = (fused_decode.launches, fused_decode_vbr.launches)
+        out = getattr(parse_device, entry)(torch.from_numpy(rect.copy()), 1, 4, 8, int(rect[0, 1]) & 15, 32)
+        assert out.device.type == "cpu" and out.shape == (2, 32, 1)
+        np.testing.assert_array_equal(out.reshape(-1).numpy(), sea_decode(encoded, device="cpu").samples)
+        assert (fused_decode.launches, fused_decode_vbr.launches) == before
+        return
     if torch.cuda.is_available():
         return
-    pcm = np.zeros(64, np.int16)
-    st = EncoderSettings(frames_per_chunk=32, scale_factor_frames=8)
-    encoded = sea_encode(pcm, 8000, 1, st, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         if entry == "encode":
             sea_encode(pcm, 8000, 1, st)
+        elif entry == "encode_corpus":
+            batch.encode_corpus([pcm, pcm[:10]], 8000, 1, st)
         else:
             sea_decode(encoded)
