@@ -74,6 +74,27 @@ Phases, in order; any failure exits non-zero:
    per-window form at 132, 264 and 528 lanes with every size's table rows
    staged and with 1..4's, in turns, and the blocks an SM holds of each
    form the corpus encode launches.
+6. The front ends and the mesh pipelines (run between phases 4 and 5, so
+   that their launches count in the kernels line), each with its launch
+   counts and wall: (a) ``seaconv`` (``cli.main``) on phase 4's 3-minute
+   signal written to a ``.wav``, CBR (``-b 3``) and VBR (``-v -b 2.5``),
+   bytes equal to the main path's files and the ``.wav`` written back to
+   ``sea_decode``'s PCM, then ``python -m sea_codec_torch`` in a child
+   process; (b) the batch CLI on bench.py's corpus shape as ``.wav`` files
+   (256 CBR, 64 VBR), bytes equal to ``encode_corpus``'s and PCM written
+   back to ``decode_corpus``'s, with its stage report; (c) meshes of
+   repeated ``cuda:0`` entries: ``encode_corpus`` on (b)'s corpora and
+   ``decode_corpus`` on phase 4's 34-file corpus over 2 entries, equal to
+   ``mesh=None`` (walls in turns), ``corpus_transcode_step`` at [8, 194,
+   5120, 2] over 2 x 2 entries, PCM equal to per-file ``sea_encode`` then
+   ``sea_decode``, and ``decode_chunk_batch_sharded`` on the main path's
+   1,550 chunks, equal to ``decode_chunks``, from host arrays and again
+   from tensors on the card still being written on the current stream
+   (each entry's stream must wait for them); (d) two ``batch_cli
+   --distributed`` processes on ``cuda:0`` with a coordinator on
+   ``localhost``, on 16 of (b)'s files: their union equal to the
+   single-process bytes. Child processes run with the checkout on
+   ``PYTHONPATH`` and load the kernels phase 1 built, each under a timeout.
 
 The last lines are the kernels' JSON line, the card line and the result
 line. Imports nothing of JAX or of the JAX package.
@@ -260,25 +281,33 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps, out
 
 
-def kernels_recorded(fn, here):
+def kernels_recorded(fn, here, attempts=3):
     """(name, device microseconds) of each CUDA kernel that ``torch.profiler``
     records for one call of ``fn`` after a warm-up call (its trace kept
-    under ``build/``)."""
+    under ``build/``). CUPTI has been seen to deliver no kernel record at
+    all for a profiled call, on one run in six: an empty recording is
+    profiled again, up to ``attempts`` times in all, and returned empty if
+    every attempt is; any other recording is returned as it is."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     out_dir = os.path.join(here, "build", "chip_smoke")
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, "trace.json")
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    return [(e["name"], e["dur"]) for e in events if e.get("cat") == "kernel"]
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [(e["name"], e["dur"]) for e in events if e.get("cat") == "kernel"]
+        if kernels:
+            break
+        log(f"[phase 5] torch.profiler recorded no CUDA kernel (attempt {attempt} of {attempts})")
+    return kernels
 
 
 def worst_of(got, want, what):
@@ -1286,14 +1315,15 @@ def corpus_encode_path(result, corpus):
                                  "msamples": samples / 1e6, "stages": dict(report)}
 
     vbr_loop_never_waits()
-    for label, st, n, seed0 in (("corpus_encode_cbr_a", EncoderSettings(), 256, 0),
-                                ("corpus_encode_vbr_a", vbr_settings(), 64, 50_000)):
+    bench = {}
+    for mode, st, n, seed0 in (("cbr", EncoderSettings(), 256, 0), ("vbr", vbr_settings(), 64, 50_000)):
         files = bench_corpus(n, seed0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         wants = [sea_encode(f, CORPUS_RATE, 2, st) for f in files]
         torch.cuda.synchronize()
-        run_corpus(label, st, [(2, files, wants)], time.perf_counter() - t0)
+        run_corpus(f"corpus_encode_{mode}_a", st, [(2, files, wants)], time.perf_counter() - t0)
+        bench[mode] = (st, files, wants)
     for mode, st in (("cbr", EncoderSettings()), ("vbr", vbr_settings())):
         calls, per_file_s = [], 0.0
         for c in (2, 3, 255):
@@ -1301,6 +1331,7 @@ def corpus_encode_path(result, corpus):
             calls.append((c, [corpus["pcms"][k] for k in ks], [corpus["blobs"][k] for k in ks]))
             per_file_s += sum(corpus["enc_s"][k] for k in ks)
         run_corpus(f"corpus_encode_{mode}_b", st, calls, per_file_s)
+    return bench
 
 
 def transcode_path(result, enc, enc_vbr):
@@ -1734,7 +1765,9 @@ def two_kernel_at_main_shape(enc, enc_vbr, result, here):
         check(len(recorded) == 1 and f"dequant_{mode}_kernel" in recorded[0][0],
               f"one unpack_dequant_{mode} call recorded the CUDA kernels {recorded}")
         device_ms = recorded[0][1] / 1e3
-        one_device_ms = kernels_recorded(lambda: wrap(1), here)[0][1] / 1e3
+        one = kernels_recorded(lambda: wrap(1), here)
+        check(len(one) == 1, f"one unpack_dequant_{mode} call on one chunk recorded the CUDA kernels {one}")
+        one_device_ms = one[0][1] / 1e3
         log(f"[phase 5] {mode} dequant kernel == plain at {[n, f, c]}: the call {ms:.4f} ms by events over 20 "
             f"(one chunk alone {one_ms:.4f} ms), its kernel {device_ms:.4f} ms on the card by the profiler "
             f"(one chunk {one_device_ms:.4f} ms), plain {plain_ms:.1f} ms; one call records one CUDA kernel "
@@ -1788,6 +1821,323 @@ def two_kernel_at_main_shape(enc, enc_vbr, result, here):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the front ends and the mesh pipelines (run before phase 5, so
+# that their launches count in the kernels line)
+# ---------------------------------------------------------------------------
+
+# a failure of a cluster's rendezvous, not of the codec: retried once on a
+# fresh port
+RENDEZVOUS_ERRORS = ("Address already in use", "Connection refused", "ECONNREFUSED", "EADDRINUSE")
+
+
+def run_main(main, argv, what):
+    """An in-process CLI call; a non-zero exit fails the smoke."""
+    try:
+        rc = main(argv)
+    except SystemExit as e:
+        rc = e.code
+    check(rc == 0, f"{what}: exit code {rc}")
+
+
+def subprocess_env(here):
+    """The environment of a child process: the checkout first on
+    ``PYTHONPATH``, so that it imports this package and loads the kernels
+    phase 1 built under ``build/``."""
+    old = os.environ.get("PYTHONPATH")
+    return dict(os.environ, PYTHONPATH=here + (os.pathsep + old if old else ""))
+
+
+def run_children(argvs, here, timeout):
+    """Run the commands at once and wait for all (each killed past
+    ``timeout`` seconds); returns (exit codes, their joined output tails)."""
+    procs = [subprocess.Popen(a, cwd=here, env=subprocess_env(here), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT) for a in argvs]
+    outs = []
+    try:
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=timeout)[0].decode(errors="replace"))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                outs.append(p.communicate()[0].decode(errors="replace") + f"\n[timed out after {timeout} s]")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [p.returncode for p in procs], "\n".join(o[-3000:] for o in outs)
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def timed(fn):
+    """(seconds, result) of ``fn`` on the card, synchronized on both ends."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def cli_path(result, here, tmp, pcm, enc, enc_vbr):
+    """(a) ``seaconv``: the main path's signal as a ``.wav``, through
+    ``cli.main`` to ``.sea`` and back, once CBR (``-b 3``) and once VBR
+    (``-v -b 2.5``): bytes equal to the main path's files, the ``.wav``
+    written back equal to ``sea_decode``'s PCM; then ``python -m
+    sea_codec_torch`` in a child process, bytes equal too."""
+    from sea_codec_torch import cli, sea_decode
+    from sea_codec_torch.utils.wav import read_wav, write_wav
+
+    wav = os.path.join(tmp, "main.wav")
+    write_wav(pcm, MAIN_CHANNELS, MAIN_RATE, wav)
+    for label, flags, want, must in (
+        ("cli_cbr", ["-b", "3"], enc, ("window_search", "fused_decode_cbr")),
+        ("cli_vbr", ["-v", "-b", "2.5"], enc_vbr,
+         ("window_search_full", "window_search_ranks_only", "fused_decode_vbr")),
+    ):
+        sea, back = os.path.join(tmp, f"{label}.sea"), os.path.join(tmp, f"{label}.wav")
+        reset_launch_counts()
+        enc_s, _ = timed(lambda: run_main(cli.main, [wav, sea, *flags], f"{label} encode"))
+        dec_s, _ = timed(lambda: run_main(cli.main, [sea, back], f"{label} decode"))
+        counts = launch_counts()
+        counts["window_search_full"] = counts["window_search"] - counts["window_search_ranks_only"]
+        result["launches"][label] = counts
+        for name in must:
+            check(counts[name] > 0, f"{label} never launched {name}")
+        with open(sea, "rb") as f:
+            check(f.read() == want, f"{label}: .sea bytes != the main path's")
+        check(np.array_equal(read_wav(back).samples, sea_decode(want).samples),
+              f"{label}: .wav written back != sea_decode")
+        log(f"[phase 6] {label}: seaconv {' '.join(flags)} on a {MAIN_FRAMES}-frame stereo .wav: "
+            f"encode {enc_s:.4f} s, decode {dec_s:.4f} s (file I/O included); bytes == main path, "
+            f"PCM == sea_decode; launches {counts}; card {result['card']}")
+        result["main"][label] = {"encode_s": enc_s, "decode_s": dec_s}
+    sub = os.path.join(tmp, "sub.sea")
+    t0 = time.perf_counter()
+    rcs, text = run_children([[sys.executable, "-m", "sea_codec_torch", wav, sub, "-b", "3"]], here, 120)
+    wall = time.perf_counter() - t0
+    check(rcs == [0], f"python -m sea_codec_torch: exit {rcs}:\n{text}")
+    with open(sub, "rb") as f:
+        check(f.read() == enc, "python -m sea_codec_torch: bytes != the main path's")
+    log(f"[phase 6] python -m sea_codec_torch (a child process, interpreter start and kernel load "
+        f"included): {wall:.2f} s, bytes == main path")
+    result["main"]["cli_subprocess_s"] = wall
+
+
+def batch_cli_path(result, tmp, bench):
+    """(b) The batch CLI on bench.py's corpus shape as ``.wav`` files (256
+    stereo CBR, 64 VBR): ``.sea`` bytes equal to ``encode_corpus``'s (which
+    phase 4 held equal to the per-file bytes in ``bench``), then back to
+    ``.wav``, PCM equal to ``decode_corpus``'s; with the ``_pt`` stage
+    report. Returns each mode's ``.wav`` directory."""
+    from sea_codec_torch import batch, batch_cli
+    from sea_codec_torch.utils.profiling import StageTimes
+    from sea_codec_torch.utils.wav import read_wav, write_wav
+
+    dirs = {}
+    for mode, flags in (("cbr", []), ("vbr", ["-v", "-b", "2.5"])):
+        _st, files, wants = bench[mode]
+        wav_in, sea_dir, wav_out = (os.path.join(tmp, f"batch_{mode}_{d}") for d in ("wav", "sea", "back"))
+        os.makedirs(wav_in)
+        for i, f in enumerate(files):
+            write_wav(f, 2, CORPUS_RATE, os.path.join(wav_in, f"{i:03d}.wav"))
+        dirs[mode] = wav_in
+        label = f"batch_cli_{mode}"
+        reset_launch_counts()
+        batch.PIPELINE_TIMES = StageTimes()
+        try:
+            enc_s, _ = timed(lambda: run_main(batch_cli.main, [os.path.join(wav_in, "*.wav"), sea_dir, *flags],
+                                              f"{label} encode"))
+            dec_s, _ = timed(lambda: run_main(batch_cli.main, [os.path.join(sea_dir, "*.sea"), wav_out],
+                                              f"{label} decode"))
+            report = batch.PIPELINE_TIMES
+        finally:
+            batch.PIPELINE_TIMES = None
+        counts = launch_counts()
+        result["launches"][label] = counts
+        for i, w in enumerate(wants):
+            with open(os.path.join(sea_dir, f"{i:03d}.sea"), "rb") as f:
+                check(f.read() == w, f"{label}: file {i} != encode_corpus")
+        decoded = batch.decode_corpus(wants)
+        for i, d in enumerate(decoded):
+            check(np.array_equal(read_wav(os.path.join(wav_out, f"{i:03d}.wav")).samples, d.samples),
+                  f"{label}: file {i} written back != decode_corpus")
+        samples = sum(f.size for f in files)
+        log(f"[phase 6] {label}: {len(files)} files, {samples / 1e6:.3f} Msamples: encode {enc_s:.4f} s, "
+            f"decode {dec_s:.4f} s (file I/O included); bytes == encode_corpus, PCM == decode_corpus; "
+            f"launches {counts}; card {result['card']}; stages:\n{report.report()}")
+        result["main"][label] = {"encode_s": enc_s, "decode_s": dec_s, "msamples": samples / 1e6,
+                                 "stages": dict(report)}
+    return dirs
+
+
+TRANSCODE_SHAPE = (8, 194, 5120, 2)  # files, chunks, frames, channels: 15.9 Msamples
+
+
+def mesh_path(result, pcm, enc, bench, corpus):
+    """(c) Meshes of repeated ``cuda:0`` entries, each with its own streams
+    (no gain expected on one card): ``encode_corpus`` on (b)'s corpora and
+    ``decode_corpus`` on the decode corpus over 2 entries, equal to
+    ``mesh=None`` (walls in turns: unsharded, mesh, mesh, unsharded);
+    ``corpus_transcode_step`` at ``TRANSCODE_SHAPE`` over 2 x 2 entries,
+    PCM equal to per-file ``sea_encode`` then ``sea_decode``; and
+    ``decode_chunk_batch_sharded`` on the main path's full chunks, equal to
+    ``decode_chunks``, from host arrays and from tensors on the card."""
+    import torch
+
+    from sea_codec_torch import EncoderSettings, batch, sea_decode, sea_encode
+    from sea_codec_torch.ops.device_decode import decode_chunks
+    from sea_codec_torch.parallel.pipeline import corpus_transcode_step, decode_chunk_batch_sharded, make_mesh
+
+    mesh2 = make_mesh(devices=["cuda:0"] * 2)
+    mesh4 = make_mesh(devices=["cuda:0"] * 4)
+    check(mesh4.devices.shape == (2, 2), f"a 4-entry mesh is {mesh4.devices.shape}")
+
+    def in_turns(label, run, want, same):
+        reset_launch_counts()
+        walls = {"none": [], "mesh": []}
+        for which in ("none", "mesh", "mesh", "none"):
+            t, out = timed(lambda: run(mesh2 if which == "mesh" else None))
+            check(same(out, want), f"{label}: mesh={which} output != mesh=None's")
+            walls[which].append(t)
+        counts = launch_counts()
+        result["launches"][label] = counts
+        log(f"[phase 6] {label} over [cuda:0] x 2, in turns: unsharded {walls['none'][0]:.4f} / "
+            f"{walls['none'][1]:.4f} s, mesh {walls['mesh'][0]:.4f} / {walls['mesh'][1]:.4f} s; equal; "
+            f"launches (both) {counts}; card {result['card']}")
+        result["main"][label] = walls
+
+    for mode in ("cbr", "vbr"):
+        st, files, wants = bench[mode]
+        in_turns(f"mesh_encode_corpus_{mode}", lambda m: batch.encode_corpus(files, CORPUS_RATE, 2, st, mesh=m),
+                 wants, lambda a, b: a == b)
+    single = [sea_decode(b).samples for b in corpus["blobs"]]
+    want = [single[k] for k in corpus["which"]]
+    in_turns("mesh_decode_corpus", lambda m: batch.decode_corpus(corpus["files"], mesh=m), want,
+             lambda outs, w: all(np.array_equal(o.samples, x) for o, x in zip(outs, w, strict=True)))
+
+    nf, nc, fpc, c = TRANSCODE_SHAPE
+    samples = np.resize(pcm, nf * nc * fpc * c).reshape(TRANSCODE_SHAPE).astype(np.int32)
+    reset_launch_counts()
+    wall, (got, codes) = timed(lambda: corpus_transcode_step(mesh4, samples, 3, 4, 20))
+    counts = launch_counts()
+    result["launches"]["transcode_step"] = counts
+    for name in ("window_search", "lms_decode"):
+        check(counts[name] > 0, f"corpus_transcode_step never launched {name}")
+    check(got.shape == TRANSCODE_SHAPE and codes.shape == TRANSCODE_SHAPE, "corpus_transcode_step shapes")
+    t0 = time.perf_counter()
+    for f in range(nf):
+        one = sea_encode(samples[f].astype(np.int16).reshape(-1), MAIN_RATE, c, EncoderSettings())
+        check(np.array_equal(got[f].reshape(-1), sea_decode(one).samples),
+              f"corpus_transcode_step: file {f} != sea_encode then sea_decode")
+    per_file = time.perf_counter() - t0
+    log(f"[phase 6] corpus_transcode_step over [cuda:0] x 4 (2 x 2) at {list(TRANSCODE_SHAPE)} "
+        f"({samples.size / 1e6:.3f} Msamples): {wall:.4f} s, PCM == per-file sea_encode + sea_decode "
+        f"({per_file:.4f} s for the {nf} files); launches {counts}; card {result['card']}")
+    result["main"]["transcode_step"] = {"s": wall, "per_file_s": per_file}
+
+    _header, (codes, sf, rs, hist, wts, sfb), _frames = batch.parse_file(enc)
+    n = MAIN_FRAMES // 5120
+    arrays = [a[:n] for a in (codes, sf, rs, hist, wts)]
+    reset_launch_counts()
+    wall, got = timed(lambda: decode_chunk_batch_sharded(mesh4, *arrays, sfb, 20))
+    counts = launch_counts()
+    result["launches"]["sharded_decode"] = counts
+    check(counts["lms_decode"] == 4, f"decode_chunk_batch_sharded: {counts['lms_decode']} lms_decode launches")
+    want = decode_chunks(*(torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in arrays), sfb=sfb, sff=20)
+    check(np.array_equal(got, want.cpu().numpy()), "decode_chunk_batch_sharded != decode_chunks")
+    log(f"[phase 6] decode_chunk_batch_sharded over [cuda:0] x 4 on the main path's {n} chunks, unpacked: "
+        f"{wall:.4f} s (host upload and download included), == decode_chunks; launches {counts}")
+    result["main"]["sharded_decode_s"] = wall
+
+    # the same chunks as tensors already on the card, written there on the
+    # current stream behind a ~50 ms spin: each entry's stream must wait for
+    # them (zeros if it reads too early). The entries' streams come from
+    # PyTorch's pool of 32 a device: on a stream new to the allocator the
+    # outputs take a cudaMalloc, which can wait for the whole card and hide
+    # a missing wait, so 9 calls of 4 streams reach streams it has served
+    hosts = [torch.from_numpy(np.ascontiguousarray(a)).pin_memory() for a in arrays]
+    want = want.cpu().numpy()
+    reps = 9
+    walls = []
+    reset_launch_counts()
+    for _ in range(reps):
+        on_card = [torch.zeros(h.shape, dtype=h.dtype, device="cuda:0") for h in hosts]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000_000)
+        for t, h in zip(on_card, hosts):
+            t.copy_(h, non_blocking=True)
+        t0 = time.perf_counter()  # not ``timed``: its first sync would end the spin
+        got = decode_chunk_batch_sharded(mesh4, *on_card, sfb, 20)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        check(np.array_equal(got, want),
+              f"decode_chunk_batch_sharded on tensors still being written on the card != decode_chunks "
+              f"(call {len(walls)} of {reps})")
+    counts = launch_counts()
+    result["launches"]["sharded_decode_on_card"] = counts
+    check(counts["lms_decode"] == 4 * reps, f"decode_chunk_batch_sharded, tensors on the card: "
+          f"{counts['lms_decode']} lms_decode launches in {reps} calls")
+    log(f"[phase 6] decode_chunk_batch_sharded over [cuda:0] x 4 on the same chunks as tensors on the card, "
+        f"written on the current stream behind a spin, {reps} calls: {walls[0]:.4f} s the first, "
+        f"{walls[-1]:.4f} s the last (the rest of the spin included); each == decode_chunks; "
+        f"launches {counts}")
+    result["main"]["sharded_decode_on_card_s"] = walls
+
+
+def distributed_path(result, here, tmp, bench, wav_dir):
+    """(d) Two ``batch_cli --distributed`` processes on ``cuda:0`` with an
+    explicit coordinator on ``localhost``, on 16 of (b)'s CBR files: the
+    union of their outputs equals the single-process bytes. A rendezvous
+    failure is retried once on a fresh port; any other failure fails."""
+    import shutil
+
+    _st, _files, wants = bench["cbr"]
+    n = 16
+    wav_in, out = os.path.join(tmp, "dist_wav"), os.path.join(tmp, "dist_sea")
+    os.makedirs(wav_in)
+    for i in range(n):
+        shutil.copy(os.path.join(wav_dir, f"{i:03d}.wav"), wav_in)
+    for attempt in range(2):
+        port = free_port()
+        argv = [sys.executable, "-m", "sea_codec_torch.batch_cli", os.path.join(wav_in, "*.wav"), out,
+                "--distributed", "--coordinator", f"localhost:{port}", "--num-processes", "2"]
+        t0 = time.perf_counter()
+        rcs, text = run_children([argv + ["--process-id", str(pid)] for pid in range(2)], here, 180)
+        wall = time.perf_counter() - t0
+        if rcs == [0, 0]:
+            break
+        check(attempt == 0 and any(m in text for m in RENDEZVOUS_ERRORS),
+              f"batch_cli --distributed: exit codes {rcs}:\n{text}")
+    for i in range(n):
+        with open(os.path.join(out, f"{i:03d}.sea"), "rb") as f:
+            check(f.read() == wants[i], f"batch_cli --distributed: file {i} != single-process bytes")
+    log(f"[phase 6] batch_cli --distributed, 2 processes on cuda:0 (gloo on localhost), {n} files: "
+        f"{wall:.2f} s (interpreter start, process group and kernel load included), the union == "
+        f"single-process bytes; card {result['card']}")
+    result["main"]["distributed_s"] = wall
+
+
+def front_ends(result, here, pcm, enc, enc_vbr, bench, corpus):
+    """Phase 6, in a temporary directory removed afterwards."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        cli_path(result, here, tmp, pcm, enc, enc_vbr)
+        wav_dirs = batch_cli_path(result, tmp, bench)
+        mesh_path(result, pcm, enc, bench, corpus)
+        distributed_path(result, here, tmp, bench, wav_dirs["cbr"])
+
+
 def run(here):
     import torch
 
@@ -1822,10 +2172,11 @@ def run(here):
                         ("fused_decode_vbr", "window_search_full", "window_search_ranks_only"))
     corpus = make_corpus(rng)
     corpus_path(result, corpus)
-    corpus_encode_path(result, corpus)
-    del corpus
+    bench = corpus_encode_path(result, corpus)
     transcode_path(result, enc, enc_vbr)
     session_path(result)
+    front_ends(result, here, pcm, enc, enc_vbr, bench, corpus)
+    del corpus, bench
     clock_mhz = float(smi("clocks.max.sm", ",nounits"))
     kernels = []
     phase5 = [decode_at_main_shape(enc, result), vbr_decode_at_main_shape(enc_vbr, result),

@@ -22,6 +22,15 @@ imports neither JAX nor anything of ``sea_codec_tpu``.
                  ``decode_corpus``, the one-shot API with both engines.
 - ``convert.py`` -- carries state, settings, parsed batches and dq streams
                  over from the JAX package's numpy arrays.
+- ``parallel/`` -- ``pipeline``: the mesh of devices (``make_mesh``), the
+                 sharded chunk decode, ``corpus_transcode_step`` and the
+                 corpus encode's lane groups dealt over a mesh (the
+                 ``mesh`` argument of ``encode_corpus``/``decode_corpus``);
+                 ``distributed``: the process group and the files of each
+                 process.
+- ``cli.py``/``__main__.py`` -- the ``seaconv`` CLI (``python -m
+                 sea_codec_torch``); ``batch_cli.py`` -- the corpus CLI,
+                 with ``--mesh`` and ``--distributed``.
 
 Entry points run on the CUDA card unless ``device`` says otherwise.
 """

@@ -25,11 +25,19 @@ def _forbidden(name: str) -> bool:
 
 
 def test_import_loads_no_jax():
+    """Every module of the package, and ``python -m sea_codec_torch`` (run
+    to its ``--help``), loads no JAX."""
     code = (
-        "import pkgutil, sys, sea_codec_torch\n"
+        "import pkgutil, runpy, sys, sea_codec_torch\n"
         "for m in pkgutil.walk_packages(sea_codec_torch.__path__, 'sea_codec_torch.'):\n"
-        "    __import__(m.name)\n"
-        "print(','.join(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "    if not m.name.endswith('.__main__'):\n"
+        "        __import__(m.name)\n"
+        "sys.argv = ['sea_codec_torch', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('sea_codec_torch', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "print('loaded:' + ','.join(sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -38,7 +46,8 @@ def test_import_loads_no_jax():
         cwd=REPO, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == ""
+    assert "usage: seaconv" in out.stdout
+    assert out.stdout.splitlines()[-1] == "loaded:"
 
 
 def test_sources_import_no_jax():
@@ -70,12 +79,14 @@ def test_smoke_script_imports_no_jax():
 @pytest.mark.parametrize(
     "module",
     ["decoder", "encoder", "ops.lms_decode", "ops.dequant", "utils.io", "utils.wav", "utils.signal",
-     "ops.parse_device", "utils.profiling", "ops.encode_file"],
+     "ops.parse_device", "utils.profiling", "ops.encode_file", "cli", "batch_cli",
+     "parallel.pipeline", "parallel.distributed"],
 )
 def test_new_modules_import_alone(module):
-    """Each module of the two-kernel decode, the sessions, the corpus encode
-    and the device parse imports in a fresh interpreter without pulling in
-    JAX or the JAX package."""
+    """Each module of the two-kernel decode, the sessions, the corpus encode,
+    the device parse, the front ends and the mesh and multi-process
+    pipelines imports in a fresh interpreter without pulling in JAX or the
+    JAX package."""
     code = (
         f"import sys, sea_codec_torch.{module}\n"
         f"print([m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}])\n"
@@ -296,14 +307,16 @@ def test_decode_entries_default_to_cuda(entry):
 
 
 @pytest.mark.parametrize(
-    "entry", ["encode", "decode", "encode_corpus", "transcode_chunks_cbr_device", "decode_rows_vbr_device"]
+    "entry", ["encode", "decode", "encode_corpus", "transcode_chunks_cbr_device", "decode_rows_vbr_device",
+              "cli.main", "batch_cli.main", "make_mesh"]
 )
-def test_entry_points_default_to_cuda(entry):
-    """Without ``device=`` the entry points target the card: on a host with
-    no GPU they raise rather than run on the CPU. The device decoders of
-    ``parse_device`` take rows already on a device and decode there: given
-    CPU rows (the caller's choice) they run the plain versions and count no
-    kernel launch."""
+def test_entry_points_default_to_cuda(entry, tmp_path, capsys):
+    """Without ``device=`` (``--device`` for the CLIs) the entry points
+    target the card: on a host with no GPU they raise, or the CLIs exit
+    non-zero with the same error, rather than run on the CPU. The device
+    decoders of ``parse_device`` take rows already on a device and decode
+    there: given CPU rows (the caller's choice) they run the plain versions
+    and count no kernel launch."""
     from sea_codec_torch import EncoderSettings, batch, sea_decode, sea_encode
     from sea_codec_torch.ops import fused_decode, fused_decode_vbr, parse_device
     from sea_codec_torch.utils.device import resolve_device
@@ -322,8 +335,23 @@ def test_entry_points_default_to_cuda(entry):
         return
     if torch.cuda.is_available():
         return
+    if entry.endswith(".main"):
+        from sea_codec_torch import batch_cli, cli
+        from sea_codec_torch.utils.wav import write_wav
+
+        write_wav(pcm, 1, 8000, str(tmp_path / "in.wav"))
+        main = cli.main if entry == "cli.main" else batch_cli.main
+        with pytest.raises(SystemExit) as e:
+            main([str(tmp_path / "in.wav"), str(tmp_path / "out.sea"), "-c", "200"])
+        assert e.value.code == 1 and "no CUDA device" in capsys.readouterr().err
+        assert sorted(os.listdir(tmp_path)) == ["in.wav"]
+        return
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        if entry == "encode":
+        if entry == "make_mesh":
+            from sea_codec_torch.parallel.pipeline import make_mesh
+
+            make_mesh()
+        elif entry == "encode":
             sea_encode(pcm, 8000, 1, st)
         elif entry == "encode_corpus":
             batch.encode_corpus([pcm, pcm[:10]], 8000, 1, st)
