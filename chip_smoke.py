@@ -95,6 +95,20 @@ Phases, in order; any failure exits non-zero:
    ``localhost``, on 16 of (b)'s files: their union equal to the
    single-process bytes. Child processes run with the checkout on
    ``PYTHONPATH`` and load the kernels phase 1 built, each under a timeout.
+7. The serving artifacts (``aot.py``) and the kernel build cache (run after
+   phase 6 and before phase 5, so that their launches count in the kernels
+   line): (a) the rows decoders of phase 4 (a)'s full chunks ([1550,
+   chunk_size], CBR at rs 3 and VBR at the first chunk header's anchor)
+   exported on the card, saved to bytes, loaded in this process and run:
+   PCM equal to ``decode_sea``'s, one fused launch a call; (b) the same
+   exported with ``SEA_FUSED_PROLOG=0``: one dequant and one ``lms_decode``
+   launch a call; (c) the loaded artifacts timed against the eager device
+   transcodes in turns, and each decode wrapper's host time a call beside
+   its op's and its CUDA kernel function's; (d) a child process with no
+   ``nvcc`` to be found loads both artifacts from files and decodes from
+   the build cache phase 1 built into (``SEA_TORCH_CACHE``), building
+   nothing, and the same child with an empty cache fails with
+   ``cuda_build``'s "nvcc not found".
 
 The last lines are the kernels' JSON line, the card line and the result
 line. Imports nothing of JAX or of the JAX package.
@@ -2138,6 +2152,293 @@ def front_ends(result, here, pcm, enc, enc_vbr, bench, corpus):
         distributed_path(result, here, tmp, bench, wav_dirs["cbr"])
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the serving artifacts (aot.py) and the kernel build cache (run
+# after phase 6 and before phase 5, so that their launches count in the
+# kernels line)
+# ---------------------------------------------------------------------------
+
+# A serving process: loads the two exported decoders from files, decodes
+# their rows and holds the PCM to the expected; prints what it found of the
+# build cache and of nvcc, its nvcc runs, its kernels' launches and where
+# its time went (seconds: imports, then per artifact its load and its first
+# decode) as JSON.
+SERVING_CHILD = """
+import time
+t0 = time.perf_counter()
+import json, shutil, sys
+import numpy as np
+import torch
+from sea_codec_torch.aot import load_rows_decoder
+from sea_codec_torch.ops import cuda_build, dequant, fused_decode, fused_decode_vbr, lms_decode
+from sea_codec_torch.utils import cache
+report = {"nvcc_on_path": shutil.which("nvcc"), "cache_dir": str(cache.cache_dir()),
+          "cache_entries": cache.cache_entries(), "equal": {}, "s": {"imports": time.perf_counter() - t0}}
+for d in sys.argv[1:]:
+    t0 = time.perf_counter()
+    with open(d + "/decoder.pt2", "rb") as f:
+        decode = load_rows_decoder(f.read())
+    t1 = time.perf_counter()
+    rows = torch.from_numpy(np.load(d + "/rows.npy")).cuda()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out = decode(rows)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    report["s"][d[-3:]] = {"load": t1 - t0, "first_decode": t3 - t2}
+    report["equal"][d] = bool(np.array_equal(out.cpu().numpy(), np.load(d + "/want.npy")))
+report["builds"] = cuda_build.builds
+report["launches"] = {"fused_decode_cbr": fused_decode.launches, "fused_decode_vbr": fused_decode_vbr.launches,
+                      "dequant_cbr": dequant.cbr_launches, "dequant_vbr": dequant.vbr_launches,
+                      "lms_decode": lms_decode.launches}
+print(json.dumps(report))
+"""
+
+
+def serving_streams(enc, enc_vbr):
+    """Per mode, the main path's full-chunk rows on the card, their
+    ``decode_sea`` PCM, the stream's geometry as ``export_rows_decoder``
+    takes it (from the header and the first chunk header: the VBR anchor
+    is its residual size) and the device transcode of the same rows."""
+    import torch
+
+    from sea_codec_torch import sea_decode
+    from sea_codec_torch.batch import split_chunks
+    from sea_codec_torch.ops.parse_device import decode_rows_vbr_device, transcode_chunks_cbr_device
+
+    streams = {}
+    for mode, blob, transcode in (("cbr", enc, transcode_chunks_cbr_device),
+                                  ("vbr", enc_vbr, decode_rows_vbr_device)):
+        header, rect, _tail = split_chunks(blob)
+        n, fpc, c = rect.shape[0], header.frames_per_chunk, header.channels
+        geo = dict(n_chunks=n, channels=c, frames_per_chunk=fpc, scale_factor_frames=int(rect[0, 2]),
+                   scale_factor_bits=int(rect[0, 1]) >> 4, residual_size=int(rect[0, 1]) & 15,
+                   vbr=mode == "vbr", chunk_size=header.chunk_size)
+        args = (c, geo["scale_factor_bits"], geo["scale_factor_frames"], geo["residual_size"], fpc)
+        streams[mode] = {
+            "rect": rect, "rows": torch.from_numpy(rect.copy()).cuda(), "geo": geo,
+            "want": sea_decode(blob).samples[: n * fpc * c].reshape(n, fpc, c),
+            "transcode": lambda rows, t=transcode, a=args: t(rows, *a),
+        }
+    return streams
+
+
+def export_and_load(result, streams, mode, route):
+    """(a), (b): export one rows decoder on the card (``SEA_FUSED_PROLOG=0``
+    at export for the two-kernel route), load it in this process, decode
+    the rows once with the launch counts set to 0 just before: PCM equal to
+    ``decode_sea``'s, and the route's kernels launched once each. Returns
+    (blob, the loaded callable)."""
+    import torch
+
+    from sea_codec_torch.aot import export_rows_decoder, load_rows_decoder
+
+    s = streams[mode]
+    before = os.environ.get("SEA_FUSED_PROLOG")
+    if route == "two_kernel":
+        os.environ["SEA_FUSED_PROLOG"] = "0"
+    else:
+        os.environ.pop("SEA_FUSED_PROLOG", None)
+    try:
+        t0 = time.perf_counter()
+        blob = export_rows_decoder(**s["geo"], device="cuda")
+        export_s = time.perf_counter() - t0
+    finally:
+        if before is None:
+            os.environ.pop("SEA_FUSED_PROLOG", None)
+        else:
+            os.environ["SEA_FUSED_PROLOG"] = before
+    t0 = time.perf_counter()
+    decode = load_rows_decoder(blob)
+    load_s = time.perf_counter() - t0
+    reset_launch_counts()
+    call_s, out = timed(lambda: decode(s["rows"]))
+    counts = launch_counts()
+    label = f"aot_{mode}" + ("" if route == "fused" else "_two_kernel")
+    result["launches"][label] = counts
+    check(np.array_equal(out.cpu().numpy(), s["want"]), f"{label}: the loaded artifact's PCM != decode_sea")
+    want = {f"fused_decode_{mode}": 1} if route == "fused" else {f"dequant_{mode}": 1, "lms_decode": 1}
+    launched = {k: v for k, v in counts.items() if v}
+    check(launched == want, f"{label}: one call launched {launched}, expected {want}")
+    log(f"[phase 7] {label}: exported {s['geo']['n_chunks']} x {s['geo']['chunk_size']} rows -> PCM on cuda "
+        f"in {export_s:.3f} s, {len(blob)} bytes; loaded in {load_s:.3f} s; first call {call_s * 1e3:.3f} ms, "
+        f"== decode_sea; launches {launched}; card {result['card']}")
+    result["main"][label] = {"export_s": export_s, "bytes": len(blob), "load_s": load_s, "first_call_s": call_s}
+    return blob, decode
+
+
+HOST_CALLS = 200
+
+
+def top_functions(fn, calls, n=6):
+    """The ``n`` functions ``fn`` spends most of its own time in over
+    ``calls`` calls, by ``cProfile``: "<us a call> <times a call>
+    <file>:<line>(<function>)". The profiler slows every Python call, so
+    the ranking, not the times, is the finding."""
+    import cProfile
+    import pstats
+
+    import torch
+
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    prof.enable()
+    for _ in range(calls):
+        fn()
+    prof.disable()
+    torch.cuda.synchronize()
+    rows = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][2])[:n]
+    return [f"{tt / calls * 1e6:.1f} us {nc / calls:g}x {os.path.basename(path)}:{line}({func})"
+            for (path, line, func), (_cc, nc, tt, _ct, _callers) in rows]
+
+
+def wrapper_host_us(streams):
+    """Host time of one call of each decode wrapper on one chunk, enqueued
+    ``HOST_CALLS`` times without waiting for the card: the wrapper (its checks, then
+    the op), the op alone (the dispatcher, then the CUDA kernel function)
+    and the CUDA kernel function called directly (the launch body)."""
+    import torch
+
+    from sea_codec_torch.ops import dequant, fused_decode, fused_decode_vbr, lms_decode
+    from sea_codec_torch.ops.parse_device import parse_chunks_cbr_device, parse_chunks_vbr_device
+
+    ops = torch.ops.sea_codec_torch
+    g = streams["cbr"]["geo"]
+    sfb, sff, f, c = g["scale_factor_bits"], g["scale_factor_frames"], g["frames_per_chunk"], g["channels"]
+    rs = g["residual_size"]
+    res, sf, _rs, hist, wts = (t.contiguous() for t in parse_chunks_cbr_device(
+        streams["cbr"]["rows"][:1], c, sfb, sff, rs, f))
+    vres, vsf, vrs, vhist, vwts = (t.contiguous() for t in parse_chunks_vbr_device(
+        streams["vbr"]["rows"][:1], c, sfb, sff, streams["vbr"]["geo"]["residual_size"], f))
+    dq = dequant.unpack_dequant_cbr(res, sf, sfb=sfb, rs=rs, sff=sff, frames=f)
+    kw = dict(sfb=sfb, sff=sff, frames=f)
+    forms = {
+        "fused_decode_cbr": (lambda: fused_decode.decode_cbr_fused(res, sf, hist, wts, rs=rs, **kw),
+                             lambda: ops.fused_decode_cbr(res, sf, hist, wts, sfb, rs, sff, f),
+                             lambda: fused_decode._launch(res, sf, hist, wts, sfb, rs, sff, f)),
+        "fused_decode_vbr": (lambda: fused_decode_vbr.decode_vbr_fused(vres, vsf, vrs, vhist, vwts, **kw),
+                             lambda: ops.fused_decode_vbr(vres, vsf, vrs, vhist, vwts, sfb, sff, f),
+                             lambda: fused_decode_vbr._launch(vres, vsf, vrs, vhist, vwts, sfb, sff, f)),
+        "dequant_cbr": (lambda: dequant.unpack_dequant_cbr(res, sf, rs=rs, **kw),
+                        lambda: ops.dequant_cbr(res, sf, sfb, rs, sff, f),
+                        lambda: dequant._launch_cbr(res, sf, sfb, rs, sff, f)),
+        "dequant_vbr": (lambda: dequant.unpack_dequant_vbr(vres, vsf, vrs, **kw),
+                        lambda: ops.dequant_vbr(vres, vsf, vrs, sfb, sff, f),
+                        lambda: dequant._launch_vbr(vres, vsf, vrs, sfb, sff, f)),
+        "lms_decode": (lambda: lms_decode.lms_decode(dq, hist, wts),
+                       lambda: ops.lms_decode(dq, hist, wts),
+                       lambda: lms_decode._launch(dq, hist, wts)),
+    }
+    for label, fn in (("op", forms["fused_decode_cbr"][1]), ("kernel function", forms["fused_decode_cbr"][2])):
+        log(f"[phase 7] fused_decode_cbr {label}, one chunk, top functions by own time (cProfile, "
+            f"{HOST_CALLS} calls): " + "; ".join(top_functions(fn, HOST_CALLS)))
+    out = {}
+    for name, fns in forms.items():
+        us = []
+        for fn in fns:
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(HOST_CALLS):
+                fn()
+            us.append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+            torch.cuda.synchronize()
+        out[name] = dict(zip(("wrapper_us", "op_us", "kernel_fn_us"), us))
+    return out
+
+
+def serving_children(result, here, tmp, streams, blobs):
+    """(d) A fresh serving process with no nvcc to be found (``PATH``
+    without it, ``CUDA_HOME`` a missing path): from the build cache this
+    process built into (``SEA_TORCH_CACHE``) it loads both artifacts from
+    files and decodes, building nothing; from an empty cache it fails with
+    ``cuda_build``'s error, with no fallback to the CPU."""
+    from sea_codec_torch.utils import cache
+
+    dirs = []
+    for mode in ("cbr", "vbr"):
+        d = os.path.join(tmp, f"serve_{mode}")
+        os.makedirs(d)
+        with open(os.path.join(d, "decoder.pt2"), "wb") as f:
+            f.write(blobs[mode])
+        np.save(os.path.join(d, "rows.npy"), streams[mode]["rect"])
+        np.save(os.path.join(d, "want.npy"), streams[mode]["want"])
+        dirs.append(d)
+    path = os.pathsep.join(p for p in os.environ.get("PATH", "").split(os.pathsep)
+                           if p and not os.path.exists(os.path.join(p, "nvcc")))
+    base = dict(subprocess_env(here), PATH=path, CUDA_HOME=os.path.join(tmp, "no_cuda"))
+    empty = os.path.join(tmp, "empty_cache")
+    runs = {}
+    for label, cache_path in (("warm", str(cache.cache_dir())), ("empty", empty)):
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run([sys.executable, "-c", SERVING_CHILD, *dirs], cwd=here, capture_output=True,
+                                  text=True, env=dict(base, SEA_TORCH_CACHE=cache_path), timeout=300)
+        except subprocess.TimeoutExpired as e:
+            raise SmokeFailure(f"serving child, {label} cache: timed out after {e.timeout} s") from e
+        runs[label] = (proc, time.perf_counter() - t0)
+    proc, wall = runs["warm"]
+    check(proc.returncode == 0, f"serving child, warm cache: exit code {proc.returncode}:\n{proc.stderr[-3000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(report["nvcc_on_path"] is None, f"serving child: nvcc found at {report['nvcc_on_path']}")
+    check(all(report["equal"].values()), f"serving child: PCM != decode_sea: {report['equal']}")
+    check(report["builds"] == 0, f"serving child ran nvcc {report['builds']} times")
+    launched = {k: v for k, v in report["launches"].items() if v}
+    check(launched == {"fused_decode_cbr": 1, "fused_decode_vbr": 1}, f"serving child launched {launched}")
+    result["launches"]["aot_child"] = dict(dict.fromkeys(launch_counts(), 0), **report["launches"])
+    times = ", ".join(f"{k} {v:.3f}" if isinstance(v, float) else
+                      f"{k}: load {v['load']:.3f}, first decode {v['first_decode']:.3f}"
+                      for k, v in report["s"].items())
+    log(f"[phase 7] serving child, no nvcc (PATH without it, CUDA_HOME missing), SEA_TORCH_CACHE="
+        f"{report['cache_dir']} ({report['cache_entries']} libraries): loaded both artifacts from files, "
+        f"PCM == decode_sea, builds {report['builds']}, launches {launched}; {wall:.2f} s with interpreter "
+        f"start (inside it, s: {times}); card {result['card']}")
+    proc, wall = runs["empty"]
+    check(proc.returncode != 0 and "nvcc not found" in proc.stderr,
+          f"serving child, empty cache: exit code {proc.returncode}, expected nvcc not found:\n"
+          f"{proc.stderr[-3000:]}")
+    log(f"[phase 7] serving child, empty SEA_TORCH_CACHE, no nvcc: exit code {proc.returncode}, "
+        f"'{proc.stderr.strip().splitlines()[-1][:120]}', no fallback to the CPU; {wall:.2f} s")
+    result["main"]["aot_child_s"] = wall
+
+
+def serving_path(result, here, enc, enc_vbr):
+    """Phase 7, in a temporary directory removed afterwards."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    streams = serving_streams(enc, enc_vbr)
+    blobs, loaded = {}, {}
+    for mode in ("cbr", "vbr"):
+        blobs[mode], loaded[mode] = export_and_load(result, streams, mode, "fused")
+        export_and_load(result, streams, mode, "two_kernel")
+    for mode in ("cbr", "vbr"):
+        s = streams[mode]
+        fns = {"artifact": lambda: loaded[mode](s["rows"]), "eager": lambda: s["transcode"](s["rows"])}
+        turns = [(which, *cuda_ms(fns[which], reps=20)) for which in ("eager", "artifact", "artifact", "eager")]
+        for which, _ms, out in turns:
+            check(np.array_equal(out.cpu().numpy(), s["want"]), f"aot_{mode} {which}: PCM != decode_sea")
+        ms = {which: [t[1] for t in turns if t[0] == which] for which in fns}
+        result["main"][f"aot_{mode}"].update(artifact_ms=ms["artifact"], eager_ms=ms["eager"])
+        log(f"[phase 7] aot_{mode}: [{s['geo']['n_chunks']}] rows -> PCM by CUDA events over 20 calls, in turns: "
+            f"eager transcode {ms['eager'][0]:.4f} / {ms['eager'][1]:.4f} ms, loaded artifact "
+            f"{ms['artifact'][0]:.4f} / {ms['artifact'][1]:.4f} ms; all equal; card {result['card']}")
+        for which, fn in fns.items():
+            log(f"[phase 7] aot_{mode} {which}, top functions by own time (cProfile, 20 calls): "
+                + "; ".join(top_functions(fn, 20)))
+    host = wrapper_host_us(streams)
+    result["main"]["wrapper_host_us"] = host
+    for name, us in host.items():
+        log(f"[phase 7] host time a call, one chunk, {HOST_CALLS} calls enqueued: {name} wrapper {us['wrapper_us']:.1f} us, "
+            f"its op {us['op_us']:.1f} us, the CUDA kernel function directly {us['kernel_fn_us']:.1f} us; "
+            f"card {result['card']}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        serving_children(result, here, tmp, streams, blobs)
+    wall = time.perf_counter() - t_phase
+    result["main"]["phase7_s"] = wall
+    log(f"[phase 7] total {wall:.2f} s")
+
+
 def run(here):
     import torch
 
@@ -2177,6 +2478,7 @@ def run(here):
     session_path(result)
     front_ends(result, here, pcm, enc, enc_vbr, bench, corpus)
     del corpus, bench
+    serving_path(result, here, enc, enc_vbr)
     clock_mhz = float(smi("clocks.max.sm", ",nounits"))
     kernels = []
     phase5 = [decode_at_main_shape(enc, result), vbr_decode_at_main_shape(enc_vbr, result),

@@ -10,7 +10,10 @@ imports neither JAX nor anything of ``sea_codec_tpu``.
                  plain PyTorch versions (``fused_decode``,
                  ``fused_decode_vbr``, ``window_search``, ``lms_decode``,
                  and the two of ``dequant``; sources in ``csrc/``, built by
-                 ``ops/cuda_build.py``). ``device_decode.decode_chunks_packed``
+                 ``ops/cuda_build.py``); the five decode kernels are
+                 ``torch.library`` custom ops (``ops/custom_ops.py``), so
+                 that ``torch.export`` traces through them.
+                 ``device_decode.decode_chunks_packed``
                  routes packed chunks to the fused kernels, or to the
                  two-kernel path (a dequant kernel, then ``lms_decode``)
                  with ``fused=False`` or ``SEA_FUSED_PROLOG=0``.
@@ -31,6 +34,12 @@ imports neither JAX nor anything of ``sea_codec_tpu``.
 - ``cli.py``/``__main__.py`` -- the ``seaconv`` CLI (``python -m
                  sea_codec_torch``); ``batch_cli.py`` -- the corpus CLI,
                  with ``--mesh`` and ``--distributed``.
+- ``aot.py``  -- serving artifacts: ``export_rows_decoder`` serializes a
+                 rows -> PCM decoder for one stream geometry
+                 (``torch.export``), ``load_rows_decoder`` runs one without
+                 tracing the codec's Python. Not imported with the package.
+- ``utils/cache.py`` -- the kernel build cache (``SEA_TORCH_CACHE``):
+                 where the nvcc builds go and are loaded from.
 
 Entry points run on the CUDA card unless ``device`` says otherwise.
 """

@@ -1,11 +1,14 @@
 """Build and load the package's hand-written CUDA kernels.
 
 Each ``csrc/<name>.cu`` exposes a plain C launcher and is compiled by
-``nvcc`` for Hopper (``sm_90a``) into ``build/sea_codec_torch/`` beside the
-package, at first use, then loaded with ``ctypes``. The library file name
-carries a hash of the source and of the shared headers (``csrc/*.cuh``), so
-an edited kernel or header is rebuilt and a stale build is never loaded.
-``build_all`` starts one ``nvcc`` per source at once.
+``nvcc`` for Hopper (``sm_90a``) into the kernel build cache
+(``utils.cache.cache_dir()``: by default ``build/sea_codec_torch/`` beside
+the package) at first use, then loaded with ``ctypes``. The library file
+name carries a hash of the source and of the shared headers
+(``csrc/*.cuh``), so an edited kernel or header is rebuilt and a stale build
+is never loaded; a library already there is loaded without looking for
+``nvcc``. ``build_all`` starts one ``nvcc`` per source at once; ``builds``
+counts the ``nvcc`` runs started.
 """
 
 from __future__ import annotations
@@ -17,8 +20,9 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from ..utils.cache import cache_dir
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sea_codec_torch"
 KERNEL_SOURCES = (
     "fused_decode_cbr", "fused_decode_vbr", "window_search",
     "lms_decode", "dequant_cbr", "dequant_vbr",
@@ -31,6 +35,7 @@ NVCC_FLAGS = [
 SMEM_LIMIT = 232_448  # dynamic shared memory one block may use on Hopper
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+builds = 0
 
 
 def _nvcc() -> str:
@@ -49,19 +54,21 @@ def _lib_path(name: str) -> Path:
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
     digest = h.hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return cache_dir() / f"lib{name}-{digest}.so"
 
 
 def _start_build(name: str):
     """Start nvcc for ``name`` unless its library exists; returns the
     (process, temp path, final path) or None."""
+    global builds
     out = _lib_path(name)
     if out.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    builds += 1
     return proc, tmp, out
 
 

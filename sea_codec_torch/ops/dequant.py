@@ -3,10 +3,11 @@ the time-major int16 dq stream that ``ops.lms_decode`` walks.
 
 Replaces the TPU kernels ``sea_codec_tpu/ops/pallas_dequant.py``
 ``unpack_dequant_cbr_lanes`` and ``unpack_dequant_vbr_lanes``, and for VBR
-the bit addressing the JAX package computes outside its kernel. On a CUDA
-tensor each wrapper allocates the output and launches one kernel:
-``unpack_dequant_cbr`` launches ``csrc/dequant_cbr.cu`` and
-``unpack_dequant_vbr`` launches ``csrc/dequant_vbr.cu``. Both are the fused
+the bit addressing the JAX package computes outside its kernel. Each
+wrapper checks its inputs and calls its custom op (``ops.custom_ops``:
+``sea_codec_torch::dequant_cbr``, ``::dequant_vbr``), whose CUDA kernel
+allocates the output and launches one kernel: ``csrc/dequant_cbr.cu`` and
+``csrc/dequant_vbr.cu``. Both are the fused
 decodes' producers (``csrc/producer_cbr.cuh``, ``csrc/producer_vbr.cuh``)
 without the recurrence: every warp of a block fills a shared-memory tile of
 dq for a group of chunks and copies it out time-major; the VBR kernel builds
@@ -17,7 +18,7 @@ device)), as the fused kernels do. Nothing is staged per row, so a row of
 any length decodes (see the source notes there). ``_cbr_launch`` and
 ``_vbr_launch`` size each launch: the launchers take their block shape and
 shared memory from them and compute only the grid. On a CPU
-tensor each runs its plain PyTorch version (``unpack_dequant_cbr_plain``,
+tensor each op runs its plain PyTorch version (``unpack_dequant_cbr_plain``,
 ``unpack_dequant_vbr_plain``: ``device_decode``'s unpack, then
 ``dequant_codes``). ``cbr_launches`` and ``vbr_launches`` count kernel
 launches. Both take a partial last window (``frames % sff != 0``).
@@ -30,7 +31,7 @@ import functools
 
 import torch
 
-from . import cuda_build, tables
+from . import cuda_build, custom_ops, tables  # noqa: F401 (custom_ops: registers the ops)
 from .decode_ring import chunks_per_block, tile_frames
 from .device_decode import clean_vbr_tables, dequant_codes, unpack_const, unpack_var
 from .fused_decode_vbr import windows_per_tile
@@ -137,8 +138,7 @@ def unpack_dequant_cbr(res_bytes, sf_codes, *, sfb, rs, sff, frames):
     """CBR rows -> dq int16[frames, N, C]. ``res_bytes`` uint8[N, B >=
     ceil(frames*C*rs/8)] as on the wire, ``sf_codes`` uint8[N,
     ceil(frames/sff), C]."""
-    global cbr_launches
-    n, w, c, device = _check(res_bytes, (("sf_codes", sf_codes),), sfb, sff, frames)
+    n, _w, c, _device = _check(res_bytes, (("sf_codes", sf_codes),), sfb, sff, frames)
     if not 1 <= rs <= 8:
         raise ValueError(f"bad residual size {rs}")
     if -(-frames // tile_frames(c)) > _MAX_GRID_Y:
@@ -146,8 +146,24 @@ def unpack_dequant_cbr(res_bytes, sf_codes, *, sfb, rs, sff, frames):
     need = -(-(frames * c * rs) // 8)
     if res_bytes.shape[1] < need:
         raise ValueError(f"res_bytes must be [{n}, >={need}], got {tuple(res_bytes.shape)}")
-    if device.type == "cpu":
-        return unpack_dequant_cbr_plain(res_bytes, sf_codes, sfb=sfb, rs=rs, sff=sff, frames=frames)
+    return torch.ops.sea_codec_torch.dequant_cbr(res_bytes, sf_codes, sfb, rs, sff, frames)
+
+
+def unpack_dequant_vbr(res_bytes, sf_codes, rs, *, sfb, sff, frames):
+    """VBR rows -> dq int16[frames, N, C]. ``res_bytes`` uint8[N, B], each
+    row holding the bits its size table implies (bytes past the row read as
+    zero); ``sf_codes`` and ``rs`` uint8[N, ceil(frames/sff), C]."""
+    _check(res_bytes, (("sf_codes", sf_codes), ("rs", rs)), sfb, sff, frames)
+    return torch.ops.sea_codec_torch.dequant_vbr(res_bytes, sf_codes, rs, sfb, sff, frames)
+
+
+def _launch_cbr(res_bytes, sf_codes, sfb, rs, sff, frames):
+    """The CBR op's CUDA kernel: one launch of ``csrc/dequant_cbr.cu`` on
+    inputs ``unpack_dequant_cbr`` checked."""
+    global cbr_launches
+    n, w, c = sf_codes.shape
+    device = sf_codes.device
+    need = -(-(frames * c * rs) // 8)
     dqt = tables.dq_table(sfb, device)  # no host copy per launch
     res_bytes, sf_codes = res_bytes.contiguous(), sf_codes.contiguous()
     out = torch.empty((frames, n, c), dtype=torch.int16, device=device)
@@ -167,14 +183,12 @@ def unpack_dequant_cbr(res_bytes, sf_codes, *, sfb, rs, sff, frames):
     return out
 
 
-def unpack_dequant_vbr(res_bytes, sf_codes, rs, *, sfb, sff, frames):
-    """VBR rows -> dq int16[frames, N, C]. ``res_bytes`` uint8[N, B], each
-    row holding the bits its size table implies (bytes past the row read as
-    zero); ``sf_codes`` and ``rs`` uint8[N, ceil(frames/sff), C]."""
+def _launch_vbr(res_bytes, sf_codes, rs, sfb, sff, frames):
+    """The VBR op's CUDA kernel: one launch of ``csrc/dequant_vbr.cu`` on
+    inputs ``unpack_dequant_vbr`` checked."""
     global vbr_launches
-    n, w, c, device = _check(res_bytes, (("sf_codes", sf_codes), ("rs", rs)), sfb, sff, frames)
-    if device.type == "cpu":
-        return unpack_dequant_vbr_plain(res_bytes, sf_codes, rs, sfb=sfb, sff=sff, frames=frames)
+    n, w, c = sf_codes.shape
+    device = sf_codes.device
     dqt = tables.dq_table(sfb, device)  # no host copy per launch
     res_bytes, sf_codes, rs = res_bytes.contiguous(), sf_codes.contiguous(), rs.contiguous()
     out = torch.empty((frames, n, c), dtype=torch.int16, device=device)

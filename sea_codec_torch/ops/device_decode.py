@@ -129,7 +129,7 @@ def unpack_var(data: torch.Tensor, rs: torch.Tensor, sff: int, frames: int) -> t
     ).reshape(n, w * sff, c)[:, :frames]
     width = r.repeat_interleave(sff, dim=1)[:, :frames]
     d = torch.nn.functional.pad(data.to(torch.int64), (0, 2)).reshape(n, b + 2, 1)
-    idx = (bit >> 3).clamp(max=b).reshape(n, -1, 1)
+    idx = (bit >> 3).clamp(max=b).reshape(n, bit.shape[1] * c, 1)  # no -1: n may be 0
     u16 = (d.gather(1, idx) << 8) | d.gather(1, idx + 1)
     codes = (u16.reshape(bit.shape) >> (16 - (bit & 7) - width)) & ((1 << width) - 1)
     return codes.to(torch.uint8)

@@ -2,8 +2,10 @@
 
 Replaces the TPU kernel ``sea_codec_tpu/ops/pallas_fused_decode.py``
 ``decode_cbr_fused_single``. On a CUDA tensor, ``decode_cbr_fused`` launches
-``csrc/fused_decode_cbr.cu``. What bounds it is one stream's chain of
-``frames`` dependent LMS steps, walked by a thread that issues in order, so
+``csrc/fused_decode_cbr.cu`` through the custom op
+``sea_codec_torch::fused_decode_cbr`` (``ops.custom_ops``). What bounds it
+is one stream's chain of ``frames`` dependent LMS steps, walked by a thread
+that issues in order, so
 everything that is not the chain runs on other warps: the shared recurrence
 ring of ``csrc/decode_ring.cuh`` (``ops.decode_ring``: ``chunks_per_block(C)``
 chunks a block, recurrence warps that walk only the chain, producer warps,
@@ -11,8 +13,8 @@ mbarriers between them), whose producers here unpack and dequantize tiles of
 ``tile_frames(C)`` frames straight from device memory into the dq ring, a
 code's value read from the reference table (``tables.dq_table``). A block
 stages no packed row, so rows of any length decode. On a CPU tensor
-it runs the plain PyTorch version, ``decode_cbr_plain``. ``launches`` counts
-kernel launches.
+the op runs the plain PyTorch version, ``decode_cbr_plain``. ``launches``
+counts kernel launches.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import ctypes
 
 import torch
 
-from . import cuda_build, decode_ring, tables
+from . import cuda_build, custom_ops, decode_ring, tables  # noqa: F401 (custom_ops: registers the op)
 from .decode_ring import chunks_per_block, tile_frames
 from .device_decode import decode_chunks_fn, unpack_const
 
@@ -80,15 +82,19 @@ def decode_cbr_fused(res_bytes, sf_codes, hist0, wts0, *, sfb, rs, sff, frames):
 
     ``res_bytes`` uint8[N, B >= ceil(frames*C*rs/8)], ``sf_codes``
     uint8[N, ceil(frames/sff), C], ``hist0``/``wts0`` int32[N, C, 4]."""
+    _check_inputs(res_bytes, sf_codes, hist0, wts0, sfb, rs, sff, frames)
+    if sf_codes.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {sf_codes.device}")
+    return torch.ops.sea_codec_torch.fused_decode_cbr(res_bytes, sf_codes, hist0, wts0, sfb, rs, sff, frames)
+
+
+def _launch(res_bytes, sf_codes, hist0, wts0, sfb, rs, sff, frames):
+    """The op's CUDA kernel: one launch of ``csrc/fused_decode_cbr.cu`` on
+    inputs ``decode_cbr_fused`` checked."""
     global launches
-    n, w, c, need = _check_inputs(res_bytes, sf_codes, hist0, wts0, sfb, rs, sff, frames)
+    n, w, c = sf_codes.shape
+    need = -(-(frames * c * rs) // 8)
     device = sf_codes.device
-    if device.type == "cpu":
-        return decode_cbr_plain(
-            res_bytes, sf_codes, hist0, wts0, sfb=sfb, rs=rs, sff=sff, frames=frames
-        )
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
     dqt = tables.dq_table(sfb, device)  # no host copy per launch
     res_bytes = res_bytes.contiguous()
     sf_codes = sf_codes.contiguous()

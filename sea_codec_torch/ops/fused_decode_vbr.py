@@ -2,16 +2,18 @@
 
 Replaces the TPU kernel ``sea_codec_tpu/ops/pallas_fused_decode.py``
 ``decode_vbr_fused_single``. On a CUDA tensor, ``decode_vbr_fused`` launches
-``csrc/fused_decode_vbr.cu``: the shared recurrence ring of
-``csrc/decode_ring.cuh`` (``ops.decode_ring``), whose producers build, for
+``csrc/fused_decode_vbr.cu`` through the custom op
+``sea_codec_torch::fused_decode_vbr`` (``ops.custom_ops``): the shared
+recurrence ring of ``csrc/decode_ring.cuh`` (``ops.decode_ring``), whose
+producers build, for
 each tile, the bit addressing of the windows it touches (each window's first
 bit from a bit cursor carried from tile to tile, its bits per frame, each
 channel's prefix) and then unpack the tile's codes straight from device
 memory and read their values from the reference tables (``tables.dq_table``;
 see the source note there). No packed row is staged, so
 the gate ``fused_vbr_supported`` depends on (sfb, sff, C) alone and is open
-for every legal one. On a CPU tensor it runs the plain PyTorch version,
-``decode_vbr_plain``. ``launches`` counts kernel launches.
+for every legal one. On a CPU tensor the op runs the plain PyTorch
+version, ``decode_vbr_plain``. ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import ctypes
 
 import torch
 
-from . import cuda_build, decode_ring, tables
+from . import cuda_build, custom_ops, decode_ring, tables  # noqa: F401 (custom_ops: registers the op)
 from .decode_ring import chunks_per_block, tile_frames
 from .device_decode import clean_vbr_tables, decode_chunks_fn, unpack_var
 
@@ -68,7 +70,6 @@ def decode_vbr_fused(res_bytes, sf_codes, rs, hist0, wts0, *, sfb, sff, frames):
     ``res_bytes`` uint8[N, B], each row holding the bits its size table
     implies (bytes past the row read as zero); ``sf_codes`` and ``rs``
     uint8[N, ceil(frames/sff), C]; ``hist0``/``wts0`` int32[N, C, 4]."""
-    global launches
     n, w, c = sf_codes.shape
     device = sf_codes.device
     if not (fused_vbr_supported(sfb, sff, c) and frames >= 1):
@@ -88,12 +89,17 @@ def decode_vbr_fused(res_bytes, sf_codes, rs, hist0, wts0, *, sfb, sff, frames):
     ):
         if t.dtype != dtype or t.device != device or t.shape != shape:
             raise ValueError(f"{name} must be {dtype}{list(shape)} on {device}")
-    if device.type == "cpu":
-        return decode_vbr_plain(
-            res_bytes, sf_codes, rs, hist0, wts0, sfb=sfb, sff=sff, frames=frames
-        )
-    if device.type != "cuda":
+    if device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device}")
+    return torch.ops.sea_codec_torch.fused_decode_vbr(res_bytes, sf_codes, rs, hist0, wts0, sfb, sff, frames)
+
+
+def _launch(res_bytes, sf_codes, rs, hist0, wts0, sfb, sff, frames):
+    """The op's CUDA kernel: one launch of ``csrc/fused_decode_vbr.cu`` on
+    inputs ``decode_vbr_fused`` checked."""
+    global launches
+    n, w, c = sf_codes.shape
+    device = sf_codes.device
     dqt = tables.dq_table(sfb, device)  # no host copy per launch
     res_bytes, sf_codes, rs = res_bytes.contiguous(), sf_codes.contiguous(), rs.contiguous()
     hist0, wts0 = hist0.contiguous(), wts0.contiguous()
