@@ -5,7 +5,9 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Phases, in order; any failure exits non-zero:
 
 1. Build the six CUDA kernels from ``sea_codec_torch/csrc`` (one nvcc
-   each, in parallel) and print the card's name and power limit.
+   each, in parallel) and, beside them, the native C++ host codec
+   (``sea_codec_torch/native/sea_native.cpp``, the host compiler; the run
+   fails without one), and print the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the same inputs,
    bit for bit (tolerance 0: an integer codec): the fused CBR decode over
    rs 1..8 x sfb {1,4,8} x C {1,2,8,255} with random bytes and LMS states;
@@ -109,6 +111,22 @@ Phases, in order; any failure exits non-zero:
    the build cache phase 1 built into (``SEA_TORCH_CACHE``), building
    nothing, and the same child with an empty cache fails with
    ``cuda_build``'s "nvcc not found".
+8. The native C++ host codec (``sea_codec_torch.native``; run after phase
+   7 and before phase 5, so that its decode launches count in the kernels
+   line): (a) the compiler, its version, the host's CPU count and the
+   library's builds; its tables equal to ``ops.tables`` for sfb 1..8 x rb
+   1..8. (b) Phase 4's VBR paths packed through ``native_pack_rows`` (and
+   the CBR paths packed nothing on the host); the VBR file's [1550, 5120 x
+   2] residuals packed by numpy ``bitpack`` (the plain version) and by
+   ``native_pack_rows``, and the file's rows serialized with each packer,
+   in turns, three times, bytes equal; the VBR ``sea_encode`` on the card
+   equal to ``native_encode`` on the host. (c) ``encode_corpus`` VBR on
+   phase 4 (c)'s corpora (a) and (b), native pack, numpy pack, native pack,
+   with the stage reports. (d) ``seaconv --backend native`` and
+   ``--backend torch`` on the 3-minute signal as a ``.wav``, CBR and VBR:
+   equal ``.sea`` bytes; the native file decoded by both backends, each
+   ``.wav`` equal to ``sea_decode``'s PCM on the card; every wall beside
+   the other backend's.
 
 The last lines are the kernels' JSON line, the card line and the result
 line. Imports nothing of JAX or of the JAX package.
@@ -1051,6 +1069,7 @@ def main_path(result, pcm, label, st, chunk_size, must_launch):
 
     frames, c, rate = MAIN_FRAMES, MAIN_CHANNELS, MAIN_RATE
     reset_launch_counts()
+    packs = native_packs()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     enc = sea_encode(pcm, rate, c, st)
@@ -1062,6 +1081,7 @@ def main_path(result, pcm, label, st, chunk_size, must_launch):
     counts = launch_counts()
     counts["window_search_full"] = counts["window_search"] - counts["window_search_ranks_only"]
     result["launches"][label] = counts
+    result["native_packs"][label] = native_packs() - packs
     for name in must_launch:
         check(counts[name] > 0, f"{label} main path never launched {name}")
 
@@ -1089,7 +1109,8 @@ def main_path(result, pcm, label, st, chunk_size, must_launch):
         f"encode {t1 - t0:.4f} s ({msamples / (t1 - t0):.3f} Msamples/s), "
         f"decode {t2 - t1:.4f} s ({msamples / (t2 - t1):.3f} Msamples/s), "
         f"psnr {psnr:.3f} dB (-20*log10(2/rms), lower is better), "
-        f"plain CPU decode {t4 - t3:.3f} s, equal; launches {counts}; card {result['card']}"
+        f"plain CPU decode {t4 - t3:.3f} s, equal; launches {counts}; native packs "
+        f"{result['native_packs'][label]}; card {result['card']}"
     )
     result["main"][label] = {
         "encode_s": t1 - t0, "decode_s": t2 - t1, "psnr_db": psnr,
@@ -1282,6 +1303,68 @@ def vbr_loop_never_waits():
     log("[phase 4] the corpus VBR chunk loop ran without a host sync; a masked chunk left its lanes' carry")
 
 
+def native_packs():
+    """Calls of the native row packer so far (``native_pack_rows``)."""
+    from sea_codec_torch.native import binding
+
+    return binding.pack_calls
+
+
+def run_corpus(result, label, st, calls, per_file_s, phase=4):
+    """``encode_corpus`` over ``calls`` ([(channels, files, expected
+    bytes)]) with ``PIPELINE_TIMES`` set: bytes equal, the search launched
+    lane-packed; launches and native packs recorded under ``label``."""
+    import torch
+
+    from sea_codec_torch import batch
+    from sea_codec_torch.utils.profiling import StageTimes
+
+    reset_launch_counts()
+    packs = native_packs()
+    batch.PIPELINE_TIMES = StageTimes()
+    walls, want_launches = [], 0
+    try:
+        for c, files, wants in calls:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = batch.encode_corpus(files, CORPUS_RATE, c, st)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            want_launches += expected_corpus_launches([f.shape[0] // c for f in files], c, st)
+            for fi, (o, w) in enumerate(zip(outs, wants, strict=True)):
+                check(o == w, f"{label}: file {fi} ({c} ch) != per-file sea_encode")
+        report = batch.PIPELINE_TIMES
+    finally:
+        batch.PIPELINE_TIMES = None
+    counts = launch_counts()
+    result["launches"][label] = counts
+    result["native_packs"][label] = native_packs() - packs
+    check(counts["window_search"] == want_launches,
+          f"{label}: {counts['window_search']} search launches, lane-packed needs {want_launches}")
+    samples = sum(f.size for _c, files, _w in calls for f in files)
+    wall = sum(walls)
+    log(f"[phase {phase}] encode_corpus {label}: {sum(len(f) for _c, f, _w in calls)} files, "
+        f"{samples / 1e6:.3f} Msamples in {wall:.4f} s ({samples / 1e6 / wall:.3f} Msamples/s; "
+        f"by call {[round(t, 4) for t in walls]}), bytes == per-file sea_encode, whose walls sum to "
+        f"{per_file_s:.4f} s; launches {counts} (lane-packed: {want_launches}); native packs "
+        f"{result['native_packs'][label]}; card {result['card']}; stages:\n{report.report()}")
+    result["main"][label] = {"encode_s": wall, "by_call_s": walls, "per_file_s": per_file_s,
+                             "msamples": samples / 1e6, "stages": dict(report)}
+    return wall
+
+
+def corpus_calls(corpus, mode):
+    """The decode corpus's files of one mode as ``encode_corpus`` calls,
+    one per channel count (repeats included), and their summed per-file
+    ``sea_encode`` walls."""
+    calls, per_file_s = [], 0.0
+    for c in (2, 3, 255):
+        ks = [k for k in corpus["which"] if corpus["meta"][k][:2] == (mode, c)]
+        calls.append((c, [corpus["pcms"][k] for k in ks], [corpus["blobs"][k] for k in ks]))
+        per_file_s += sum(corpus["enc_s"][k] for k in ks)
+    return calls, per_file_s
+
+
 def corpus_encode_path(result, corpus):
     """``encode_corpus`` on the card, both modes: (a) bench.py's corpus
     shape, 256 stereo files CBR and 64 VBR, against per-file ``sea_encode``
@@ -1293,40 +1376,7 @@ def corpus_encode_path(result, corpus):
     synchronized upload costs no overlap)."""
     import torch
 
-    from sea_codec_torch import EncoderSettings, batch, sea_encode
-    from sea_codec_torch.utils.profiling import StageTimes
-
-    def run_corpus(label, st, calls, per_file_s):
-        """``calls``: [(channels, files, expected bytes)]."""
-        reset_launch_counts()
-        batch.PIPELINE_TIMES = StageTimes()
-        walls, want_launches = [], 0
-        try:
-            for c, files, wants in calls:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                outs = batch.encode_corpus(files, CORPUS_RATE, c, st)
-                torch.cuda.synchronize()
-                walls.append(time.perf_counter() - t0)
-                want_launches += expected_corpus_launches([f.shape[0] // c for f in files], c, st)
-                for fi, (o, w) in enumerate(zip(outs, wants, strict=True)):
-                    check(o == w, f"{label}: file {fi} ({c} ch) != per-file sea_encode")
-            report = batch.PIPELINE_TIMES
-        finally:
-            batch.PIPELINE_TIMES = None
-        counts = launch_counts()
-        result["launches"][label] = counts
-        check(counts["window_search"] == want_launches,
-              f"{label}: {counts['window_search']} search launches, lane-packed needs {want_launches}")
-        samples = sum(f.size for _c, files, _w in calls for f in files)
-        wall = sum(walls)
-        log(f"[phase 4] encode_corpus {label}: {sum(len(f) for _c, f, _w in calls)} files, "
-            f"{samples / 1e6:.3f} Msamples in {wall:.4f} s ({samples / 1e6 / wall:.3f} Msamples/s; "
-            f"by call {[round(t, 4) for t in walls]}), bytes == per-file sea_encode, whose walls sum to "
-            f"{per_file_s:.4f} s; launches {counts} (lane-packed: {want_launches}); card {result['card']}; "
-            f"stages:\n{report.report()}")
-        result["main"][label] = {"encode_s": wall, "by_call_s": walls, "per_file_s": per_file_s,
-                                 "msamples": samples / 1e6, "stages": dict(report)}
+    from sea_codec_torch import EncoderSettings, sea_encode
 
     vbr_loop_never_waits()
     bench = {}
@@ -1336,15 +1386,10 @@ def corpus_encode_path(result, corpus):
         t0 = time.perf_counter()
         wants = [sea_encode(f, CORPUS_RATE, 2, st) for f in files]
         torch.cuda.synchronize()
-        run_corpus(f"corpus_encode_{mode}_a", st, [(2, files, wants)], time.perf_counter() - t0)
+        run_corpus(result, f"corpus_encode_{mode}_a", st, [(2, files, wants)], time.perf_counter() - t0)
         bench[mode] = (st, files, wants)
     for mode, st in (("cbr", EncoderSettings()), ("vbr", vbr_settings())):
-        calls, per_file_s = [], 0.0
-        for c in (2, 3, 255):
-            ks = [k for k in corpus["which"] if corpus["meta"][k][:2] == (mode, c)]
-            calls.append((c, [corpus["pcms"][k] for k in ks], [corpus["blobs"][k] for k in ks]))
-            per_file_s += sum(corpus["enc_s"][k] for k in ks)
-        run_corpus(f"corpus_encode_{mode}_b", st, calls, per_file_s)
+        run_corpus(result, f"corpus_encode_{mode}_b", st, *corpus_calls(corpus, mode))
     return bench
 
 
@@ -1625,7 +1670,7 @@ def vbr_search_at_main_shape(pcm, enc, result, clock_mhz):
                                  chunk_residual_size(st.residual_bits, target))
     pack_s = time.perf_counter() - t0
     check(np.array_equal(rows, rect), "VBR host pack != main-path file")
-    log(f"[phase 5] VBR host pack (serialize_full_chunks, numpy) of {nc} chunks x {f * c} codes: "
+    log(f"[phase 5] VBR host pack (serialize_full_chunks, native packer) of {nc} chunks x {f * c} codes: "
         f"{pack_s * 1e3:.1f} ms, == main-path file")
 
     skw = dict(sfb=sfb, sff=sff, wpc=wpc)
@@ -2439,17 +2484,220 @@ def serving_path(result, here, enc, enc_vbr):
     log(f"[phase 7] total {wall:.2f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the native C++ host codec (run after phase 7 and before phase 5,
+# so that its decode launches count in the kernels line)
+# ---------------------------------------------------------------------------
+
+PACK_TURNS = 3
+# encode_corpus VBR walls with the numpy pack alone, on an NVIDIA H100 80GB
+# HBM3 at 700.00 W (this script's phase 4 (c) before the native pack)
+NUMPY_PACK_CORPUS_S = {"a": 0.3499, "b": 7.4027}
+
+
+def residual_pack_numpy(codes, widths):
+    """The plain version of the residual pack: ``bitpack`` 64 rows at a
+    time, as ``serialize_full_chunks`` packs without a C++ compiler."""
+    from sea_codec_torch.batch import _PACK_BLOCK_ROWS
+    from sea_codec_torch.ops import bitpack
+
+    return np.concatenate([bitpack.pack_bits_rows(codes[r : r + _PACK_BLOCK_ROWS], widths[r : r + _PACK_BLOCK_ROWS])
+                           for r in range(0, codes.shape[0], _PACK_BLOCK_ROWS)])
+
+
+def native_build_and_tables(result):
+    """(a) The library phase 1 built, its compiler and host, and its tables
+    against the port's."""
+    from sea_codec_torch.native import binding
+    from sea_codec_torch.ops import tables
+
+    check(binding.available(), "native.available() is False: no host C++ compiler")
+    cxx = binding.compiler()
+    version = subprocess.run([cxx, "--version"], capture_output=True, text=True).stdout.splitlines()[0]
+    for sfb in range(1, 9):
+        for rb in range(1, 9):
+            check(np.array_equal(binding.native_dump_dqt(sfb, rb), tables.dqt(rb, sfb))
+                  and np.array_equal(binding.native_dump_reciprocals(sfb, rb), tables.reciprocals(rb, sfb)),
+                  f"native tables != ops.tables at sfb {sfb}, rb {rb}")
+    log(f"[phase 8] native host codec {binding.lib_path()}: built in phase 1 by {cxx} ({version}) in "
+        f"{result['main']['native_build_s']:.2f} s, builds {binding.builds}; host os.cpu_count() "
+        f"{os.cpu_count()}; dqt and reciprocals == ops.tables for sfb 1..8 x rb 1..8")
+    result["main"]["native"] = {"compiler": version, "builds": binding.builds, "cpu_count": os.cpu_count()}
+
+
+def native_pack_at_main_shape(result, pcm, enc_vbr):
+    """(b) The VBR file's search outputs (its full chunks' scale factors,
+    sizes and codes, read back from the file, which phase 5 holds equal to
+    the search's): the residual pack by numpy and by ``native_pack_rows``,
+    and ``serialize_full_chunks`` with each packer, in turns; then the VBR
+    ``sea_encode`` against ``native_encode`` of the same signal."""
+    import torch
+
+    from sea_codec_torch import batch, sea_encode
+    from sea_codec_torch.models.vbr import chunk_residual_size, normalized_vbr_bitrate
+    from sea_codec_torch.native import binding
+    from sea_codec_torch.ops.device_decode import unpack_var
+
+    check(all(result["native_packs"][k] > 0 for k in ("vbr", "corpus_encode_vbr_a", "corpus_encode_vbr_b")),
+          f"phase 4's VBR paths ran no native pack: {result['native_packs']}")
+    check(all(result["native_packs"][k] == 0 for k in ("cbr", "corpus_encode_cbr_a", "corpus_encode_cbr_b")),
+          f"a CBR path packed on the host: {result['native_packs']}")
+    header, rect, _tail = batch.split_chunks(enc_vbr)
+    b = batch.parse_full_chunks(rect, header)
+    nc, f, c = rect.shape[0], header.frames_per_chunk, header.channels
+    st = vbr_settings()
+    sfb, sff = st.scale_factor_bits, st.scale_factor_frames
+    codes = unpack_var(torch.from_numpy(b.res_bytes).cuda(), torch.from_numpy(b.rs).cuda(), sff, f).cpu().numpy()
+    sizes = b.rs.astype(np.uint8)
+    widths = np.repeat(sizes, sff, axis=1)[:, :f].reshape(nc, f * c)
+    flat = codes.reshape(nc, f * c)
+    row_bytes = (int(widths[0].sum(dtype=np.int64)) + 7) // 8
+    rs = chunk_residual_size(st.residual_bits, normalized_vbr_bitrate(st.residual_bits, f, sfb, sff))
+    args = (b.sf, codes, sizes, b.hist, b.wts, sfb, sff, rs)
+    times = {k: [] for k in ("numpy", "native", "serialize_numpy", "serialize_native")}
+    available = batch.native.available
+    for _turn in range(PACK_TURNS):
+        t0 = time.perf_counter()
+        want = residual_pack_numpy(flat, widths)
+        t1 = time.perf_counter()
+        got = binding.native_pack_rows(flat, widths, row_bytes)
+        t2 = time.perf_counter()
+        check(np.array_equal(got, want), "native_pack_rows != numpy bitpack on the VBR file's residuals")
+        batch.native.available = lambda: False
+        try:
+            rows_numpy = batch.serialize_full_chunks(*args)
+        finally:
+            batch.native.available = available
+        t3 = time.perf_counter()
+        rows_native = batch.serialize_full_chunks(*args)
+        t4 = time.perf_counter()
+        check(np.array_equal(rows_numpy, rect) and np.array_equal(rows_native, rect),
+              "serialize_full_chunks != the VBR file's rows")
+        for k, t in zip(times, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            times[k].append(t)
+    ms = {k: ", ".join(f"{t * 1e3:.1f}" for t in v) for k, v in times.items()}
+    log(f"[phase 8] residual pack of the VBR file, [{nc}, {f * c}] codes of widths 1..8 -> [{nc}, {row_bytes}] "
+        f"bytes, in turns (ms): numpy bitpack {ms['numpy']}; native_pack_rows (4 threads) {ms['native']}; "
+        f"bytes equal. serialize_full_chunks, all sections: numpy {ms['serialize_numpy']}; native "
+        f"{ms['serialize_native']}; == the file's rows; card {result['card']}")
+    result["main"]["native_pack"] = dict(times)
+    reset_launch_counts()
+    packs = native_packs()
+    wall, enc = timed(lambda: sea_encode(pcm, MAIN_RATE, MAIN_CHANNELS, st))
+    packs = native_packs() - packs
+    result["launches"]["native_vbr_encode"] = launch_counts()
+    t0 = time.perf_counter()
+    host = binding.native_encode(pcm, MAIN_RATE, MAIN_CHANNELS, vbr=True, residual_bits=st.residual_bits)
+    host_s = time.perf_counter() - t0
+    check(enc == enc_vbr and host == enc, "VBR sea_encode != native_encode (or != phase 4's file)")
+    check(packs == 3, f"the VBR sea_encode made {packs} native packs, expected 3")
+    log(f"[phase 8] VBR sea_encode of the {MAIN_FRAMES}-frame stereo signal on the card, native pack: "
+        f"{wall:.4f} s (phase 4: {result['main']['vbr']['encode_s']:.4f} s); native_encode on the host "
+        f"(one thread) {host_s:.4f} s; bytes equal; launches {result['launches']['native_vbr_encode']}; "
+        f"card {result['card']}")
+    result["main"]["native_pack"].update(vbr_encode_s=wall, native_encode_vbr_s=host_s)
+
+
+def native_corpus_encode(result, bench, corpus):
+    """(c) ``encode_corpus`` VBR on corpora (a) and (b): the native pack, the
+    numpy pack (``native.available`` patched False), the native pack again."""
+    from sea_codec_torch import batch
+
+    st, files, wants = bench["vbr"]
+    available = batch.native.available
+    walls = {}
+    for which, calls, per_file_s in (("a", [(2, files, wants)], result["main"]["corpus_encode_vbr_a"]["per_file_s"]),
+                                     ("b", *corpus_calls(corpus, "vbr"))):
+        for turn, packer in enumerate(("native", "numpy", "native")):
+            label = f"native_corpus_encode_vbr_{which}_{packer}_{turn}"
+            if packer == "numpy":
+                batch.native.available = lambda: False
+            try:
+                walls.setdefault((which, packer), []).append(run_corpus(result, label, st, calls, per_file_s, phase=8))
+            finally:
+                batch.native.available = available
+            check((result["native_packs"][label] > 0) == (packer == "native"), f"{label}: wrong packer ran")
+    for which in ("a", "b"):
+        log(f"[phase 8] encode_corpus VBR ({which}), in turns: native pack "
+            f"{', '.join(f'{t:.4f}' for t in walls[(which, 'native')])} s, numpy pack "
+            f"{walls[(which, 'numpy')][0]:.4f} s (numpy pack in an earlier run: {NUMPY_PACK_CORPUS_S[which]} s); "
+            f"card {result['card']}")
+    result["main"]["native_corpus_encode_vbr"] = {f"{w}_{p}": v for (w, p), v in walls.items()}
+
+
+def native_cli(result, pcm, enc, enc_vbr):
+    """(d) ``seaconv --backend native`` and ``--backend torch`` on the main
+    path's signal as a ``.wav``, CBR (``-b 3``) and VBR (``-v -b 2.5``):
+    the same ``.sea`` bytes; the native file decoded by both backends, each
+    ``.wav`` written back equal to ``sea_decode``'s PCM on the card."""
+    import tempfile
+
+    from sea_codec_torch import cli, sea_decode
+    from sea_codec_torch.utils.wav import read_wav, write_wav
+
+    backends = ("torch", "native")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_native_") as tmp:
+        wav = os.path.join(tmp, "main.wav")
+        write_wav(pcm, MAIN_CHANNELS, MAIN_RATE, wav)
+        for mode, flags, want in (("cbr", ["-b", "3"], enc), ("vbr", ["-v", "-b", "2.5"], enc_vbr)):
+            label, s, seas, backs = f"native_cli_{mode}", {}, {}, {}
+            for b in backends:
+                sea = os.path.join(tmp, f"{mode}_{b}.sea")
+                s[f"{b}_encode"], _ = timed(
+                    lambda: run_main(cli.main, [wav, sea, *flags, "--backend", b], f"{label}: {b} encode"))
+                with open(sea, "rb") as fh:
+                    seas[b] = fh.read()
+            check(seas["native"] == seas["torch"] == want, f"{label}: native .sea != torch .sea (or != main path)")
+            reset_launch_counts()
+            for b in backends:
+                back = os.path.join(tmp, f"{mode}_{b}.wav")
+                s[f"{b}_decode"], _ = timed(lambda: run_main(
+                    cli.main, [os.path.join(tmp, f"{mode}_native.sea"), back, "--backend", b], f"{label}: {b} decode"))
+                backs[b] = read_wav(back).samples
+            pcm_card = sea_decode(seas["native"]).samples
+            counts = launch_counts()
+            result["launches"][label] = counts
+            check(counts[f"fused_decode_{mode}"] > 0, f"{label}: the card's decodes never launched fused_decode_{mode}")
+            check(all(np.array_equal(backs[b], pcm_card) for b in backends),
+                  f"{label}: a .wav written back != sea_decode on the card")
+            log(f"[phase 8] seaconv {' '.join(flags)} on a {MAIN_FRAMES}-frame stereo .wav, walls with file I/O: "
+                f"encode native {s['native_encode']:.4f} s, torch {s['torch_encode']:.4f} s; decode of the "
+                f"native file native {s['native_decode']:.4f} s, torch {s['torch_decode']:.4f} s; .sea bytes "
+                f"equal, both .wav == sea_decode on the card; launches {counts}; card {result['card']}")
+            result["main"][label] = s
+
+
+def native_path(result, pcm, enc, enc_vbr, bench, corpus):
+    """Phase 8."""
+    t0 = time.perf_counter()
+    native_build_and_tables(result)
+    native_pack_at_main_shape(result, pcm, enc_vbr)
+    native_corpus_encode(result, bench, corpus)
+    native_cli(result, pcm, enc, enc_vbr)
+    result["main"]["phase8_s"] = time.perf_counter() - t0
+    log(f"[phase 8] total {result['main']['phase8_s']:.2f} s")
+
+
 def run(here):
+    from concurrent.futures import ThreadPoolExecutor
+
     import torch
 
     from sea_codec_torch import EncoderSettings
+    from sea_codec_torch.native import binding
     from sea_codec_torch.ops import cuda_build
     from sea_codec_torch.ops.serialize_device import cbr_chunk_size
 
-    result = {"launches": {}, "main": {}}
+    result = {"launches": {}, "main": {}, "native_packs": {}}
     t0 = time.perf_counter()
-    cuda_build.build_all()
+    with ThreadPoolExecutor(1) as ex:  # the host codec's g++ beside the nvcc runs
+        native = ex.submit(lambda: (binding.available(), time.perf_counter() - t0))
+        cuda_build.build_all()
     log(f"[phase 1] built {len(cuda_build.KERNEL_SOURCES)} kernels in {time.perf_counter() - t0:.2f} s")
+    ok, result["main"]["native_build_s"] = native.result()
+    check(ok, "native.available() is False: no host C++ compiler for the VBR pack")
+    log(f"[phase 1] native host codec {binding.lib_path().name}: {binding.builds} build(s) in "
+        f"{result['main']['native_build_s']:.2f} s")
     result["card"] = card_line()
     log(f"[phase 1] card: {result['card']}; torch {torch.__version__} cuda {torch.version.cuda}")
 
@@ -2477,8 +2725,9 @@ def run(here):
     transcode_path(result, enc, enc_vbr)
     session_path(result)
     front_ends(result, here, pcm, enc, enc_vbr, bench, corpus)
-    del corpus, bench
     serving_path(result, here, enc, enc_vbr)
+    native_path(result, pcm, enc, enc_vbr, bench, corpus)
+    del corpus, bench
     clock_mhz = float(smi("clocks.max.sm", ",nounits"))
     kernels = []
     phase5 = [decode_at_main_shape(enc, result), vbr_decode_at_main_shape(enc_vbr, result),

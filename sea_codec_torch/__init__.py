@@ -40,6 +40,10 @@ imports neither JAX nor anything of ``sea_codec_tpu``.
                  tracing the codec's Python. Not imported with the package.
 - ``utils/cache.py`` -- the kernel build cache (``SEA_TORCH_CACHE``):
                  where the nvcc builds go and are loaded from.
+- ``native/`` -- the C++ host codec (``sea_native.cpp``, built by the host
+                 compiler into the same cache): the VBR row pack of
+                 ``batch.serialize_full_chunks`` and ``seaconv --backend
+                 native``.
 
 Entry points run on the CUDA card unless ``device`` says otherwise.
 """

@@ -39,6 +39,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from . import native
 from .api import SeaDecodeInfo
 from .container import (
     CHUNK_TYPE_CBR,
@@ -66,7 +67,7 @@ from .utils.device import resolve_device
 from .utils.errors import SeaInvalidFrame
 from .utils.profiling import stage_timer
 
-_PACK_BLOCK_ROWS = 64  # chunks per host VBR pack; the bytes do not depend on it
+_PACK_BLOCK_ROWS = 64  # chunks per numpy VBR residual pack; the bytes do not depend on it
 
 # Optional pipeline attribution: when a caller installs a ``StageTimes``
 # here, the corpus pipelines record where wall-clock goes --
@@ -675,9 +676,12 @@ def serialize_full_chunks(
 
     All full chunks share section lengths (the distribution counts are
     static per full chunk, so the residual bit total is constant), making
-    the body one rectangular pack, done ``_PACK_BLOCK_ROWS`` rows at a time
-    to bound the packer's temporaries (~40 bytes per code). Variable-width
-    residuals cannot use the device serializer's static layouts."""
+    the body one rectangular pack. Variable-width residuals cannot use the
+    device serializer's static layouts. The native C++ packer packs each
+    section in one call over all rows (its rows shard over host threads), as
+    the JAX package does; without a C++ compiler, numpy's ``bitpack`` packs
+    the residuals ``_PACK_BLOCK_ROWS`` rows at a time to bound its
+    temporaries (~40 bytes per code). The bytes are the same."""
     nc, w, c = sf.shape
     fpc = codes.shape[1]
     sff = scale_factor_frames
@@ -690,25 +694,33 @@ def serialize_full_chunks(
     )
     lms = np.concatenate([ehist, ewts], axis=2).astype(np.int16)  # [nc, C, 8]
     lms_bytes = np.ascontiguousarray(lms.astype("<i2")).reshape(nc, -1).view(np.uint8)
-    rel = (sizes.astype(np.int32) - residual_size + 1).astype(np.uint8)
-    parts = [
-        head,
-        lms_bytes,
-        bitpack.pack_bits_rows(sf.reshape(nc, w * c), scale_factor_bits),
-        bitpack.pack_bits_rows(rel.reshape(nc, w * c), 2),
-    ]
-    res = []
-    for b0 in range(0, nc, _PACK_BLOCK_ROWS):
-        sz = sizes[b0 : b0 + _PACK_BLOCK_ROWS]
-        widths = np.repeat(sz.astype(np.int64), sff, axis=1)[:, :fpc]
-        res.append(
-            bitpack.pack_bits_rows(
-                codes[b0 : b0 + _PACK_BLOCK_ROWS].reshape(sz.shape[0], fpc * c),
-                widths.reshape(sz.shape[0], fpc * c),
+    rel = (sizes.astype(np.int32) - residual_size + 1).astype(np.uint8).reshape(nc, w * c)
+    sf = sf.reshape(nc, w * c)
+    if native.available():
+        widths = np.repeat(sizes, sff, axis=1)[:, :fpc].reshape(nc, fpc * c)
+        res_bytes = (int(widths[0].sum(dtype=np.int64)) + 7) // 8
+        parts = [
+            native.native_pack_rows(sf, scale_factor_bits, (w * c * scale_factor_bits + 7) // 8),
+            native.native_pack_rows(rel, 2, (w * c * 2 + 7) // 8),
+            native.native_pack_rows(codes.reshape(nc, fpc * c), widths, res_bytes),
+        ]
+    else:
+        res = []
+        for b0 in range(0, nc, _PACK_BLOCK_ROWS):
+            sz = sizes[b0 : b0 + _PACK_BLOCK_ROWS]
+            widths = np.repeat(sz.astype(np.int64), sff, axis=1)[:, :fpc]
+            res.append(
+                bitpack.pack_bits_rows(
+                    codes[b0 : b0 + _PACK_BLOCK_ROWS].reshape(sz.shape[0], fpc * c),
+                    widths.reshape(sz.shape[0], fpc * c),
+                )
             )
-        )
-    parts.append(np.concatenate(res))
-    return np.hstack(parts)
+        parts = [
+            bitpack.pack_bits_rows(sf, scale_factor_bits),
+            bitpack.pack_bits_rows(rel, 2),
+            np.concatenate(res),
+        ]
+    return np.hstack([head, lms_bytes, *parts])
 
 
 def encode_sea(

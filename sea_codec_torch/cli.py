@@ -17,10 +17,12 @@ Two flags differ from the JAX package's CLI:
 - ``--device {cuda,cpu}`` (default ``cuda``) stands where the JAX package
   reads ``JAX_PLATFORMS``. Without a card the CLI exits with an error
   unless given ``--device cpu``; it never falls back to the CPU on its own.
-- ``--backend {auto,torch}``: both run the port's pipeline (encode through
-  ``batch.encode_sea``, decode through ``batch.decode_sea``). The JAX
-  package's ``native`` (its C++ host codec, kept there as a test oracle)
-  and ``jax`` backends are not offered.
+- ``--backend {auto,torch,native}``: ``auto`` and ``torch`` run the port's
+  pipeline (encode through ``batch.encode_sea``, decode through
+  ``batch.decode_sea``) on ``--device``; ``native`` runs the C++ host codec
+  (``native.native_encode``/``native_decode``) on the host, as the JAX
+  package's ``native`` does, and ``--device`` does not apply to it. The JAX
+  package's ``jax`` backend is not offered.
 """
 
 from __future__ import annotations
@@ -47,9 +49,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-v", "--vbr", action="store_true", help="Enables Variable Bit Rate (VBR)")
     p.add_argument("--metadata", action="append", default=[], metavar="KEY=VALUE", help="Embed a metadata key=value pair (repeatable)")
     p.add_argument("--stats", action="store_true", help="Print encode/decode statistics")
-    p.add_argument("--backend", choices=["auto", "torch"], default="auto", help="Codec backend: the PyTorch pipeline")
+    p.add_argument("--backend", choices=["auto", "torch", "native"], default="auto",
+                   help="Codec backend: the PyTorch pipeline, or the native C++ host codec")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="Run on the CUDA card (default) or, when asked, on the CPU")
+                   help="Run the PyTorch pipeline on the CUDA card (default) or, when asked, on "
+                        "the CPU; the native backend runs on the host")
     return p
 
 
@@ -145,7 +149,8 @@ def main(argv: list[str] | None = None) -> int:
         _die(
             "Invalid file extensions. Supported conversions are .wav to .sea and .sea to .wav"
         )
-    device = get_device(args)
+    native = args.backend == "native"
+    device = None if native else get_device(args)
 
     import time
 
@@ -158,7 +163,19 @@ def main(argv: list[str] | None = None) -> int:
         except (OSError, ValueError):
             _die("Failed to decode .wav file")
         t0 = time.perf_counter()
-        encoded = encode_sea(wave.samples, wave.sample_rate, wave.channels, settings, device=device)
+        if native:
+            from .native import native_encode
+
+            encoded = native_encode(
+                wave.samples, wave.sample_rate, wave.channels,
+                scale_factor_bits=settings.scale_factor_bits,
+                scale_factor_frames=settings.scale_factor_frames,
+                residual_bits=settings.residual_bits,
+                frames_per_chunk=settings.frames_per_chunk,
+                vbr=settings.vbr, metadata=settings.metadata,
+            )
+        else:
+            encoded = encode_sea(wave.samples, wave.sample_rate, wave.channels, settings, device=device)
         elapsed = time.perf_counter() - t0
         try:
             with open(args.output, "wb") as f:
@@ -187,15 +204,24 @@ def main(argv: list[str] | None = None) -> int:
         except OSError:
             _die("Failed to open input file")
         t0 = time.perf_counter()
-        try:
-            info = decode_sea(data, device=device)
-        except SeaError:
-            _die("Failed to decode frame")
+        if native:
+            from .native import native_decode
+
+            try:
+                samples, sample_rate, channels = native_decode(data)
+            except ValueError:
+                _die("Failed to decode frame")
+        else:
+            try:
+                info = decode_sea(data, device=device)
+            except SeaError:
+                _die("Failed to decode frame")
+            samples, sample_rate, channels = info.samples, info.sample_rate, info.channels
         elapsed = time.perf_counter() - t0
         header = SeaFileHeader.from_reader(io.BytesIO(data))
-        write_wav(info.samples, info.channels, info.sample_rate, args.output)
+        write_wav(samples, channels, sample_rate, args.output)
         if args.stats:
-            n = info.samples.shape[0]
+            n = samples.shape[0]
             print(
                 f"decoded {n} samples in {elapsed * 1e3:.1f} ms "
                 f"({n / max(elapsed, 1e-9) / 1e6:.1f} Msamples/s)"

@@ -141,14 +141,17 @@ def test_bad_extensions_match_jax(capsys):
 
 @pytest.mark.parametrize("backend", ["native", "jax", "torch"])
 def test_backends(short_wav, tmp_path, capsys, backend):
-    """Only ``auto`` and ``torch`` are offered: argparse refuses the JAX
-    package's ``native`` and ``jax``."""
+    """``torch`` and ``native`` (the C++ host codec) are offered and write
+    the bytes of ``auto``; argparse refuses the JAX package's ``jax``."""
     out = tmp_path / "o.sea"
     rc, _out, err = _call(cli.main, [short_wav, str(out), "-c", "200", "--backend", backend, *CPU], capsys)
-    if backend == "torch":
-        assert rc == 0 and out.stat().st_size > 0
-    else:
+    if backend == "jax":
         assert rc == 2 and f"invalid choice: '{backend}'" in err and not out.exists()
+    else:
+        assert rc == 0, err
+        auto = tmp_path / "auto.sea"
+        assert _call(cli.main, [short_wav, str(auto), "-c", "200", *CPU], capsys)[0] == 0
+        assert out.read_bytes() == auto.read_bytes() and out.stat().st_size > 0
 
 
 @pytest.mark.parametrize("main", [cli.main, batch_cli.main], ids=["cli", "batch_cli"])

@@ -80,13 +80,13 @@ def test_smoke_script_imports_no_jax():
     "module",
     ["decoder", "encoder", "ops.lms_decode", "ops.dequant", "utils.io", "utils.wav", "utils.signal",
      "ops.parse_device", "utils.profiling", "ops.encode_file", "cli", "batch_cli",
-     "parallel.pipeline", "parallel.distributed"],
+     "parallel.pipeline", "parallel.distributed", "native"],
 )
 def test_new_modules_import_alone(module):
     """Each module of the two-kernel decode, the sessions, the corpus encode,
-    the device parse, the front ends and the mesh and multi-process
-    pipelines imports in a fresh interpreter without pulling in JAX or the
-    JAX package."""
+    the device parse, the front ends, the mesh and multi-process
+    pipelines and the native host codec imports in a fresh interpreter
+    without pulling in JAX or the JAX package."""
     code = (
         f"import sys, sea_codec_torch.{module}\n"
         f"print([m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}])\n"
