@@ -55,7 +55,9 @@ Phases, in order; any failure exits non-zero:
    both modes, on bench.py's corpus shape (256 stereo files of 7-8 chunks
    CBR, 64 VBR) and on (b)'s files by channel count, bytes equal to
    per-file ``sea_encode``, the search launched lane-packed, with its
-   stage report and the summed per-file walls. (d) The device transcodes
+   stage report and the summed per-file walls; all-empty corpora (1 and 3
+   files, both modes, unsharded and over [cuda:0] x 2) equal to per-file
+   ``sea_encode``'s 22-byte headers. (d) The device transcodes
    (``parse_device``) of (a)'s full-chunk rows, PCM equal to
    ``decode_sea``'s, with no wait for the card before the result. (e) One
    file per mode through ``SeaEncoder``/``SeaDecoder`` chunk by chunk, bytes
@@ -127,6 +129,19 @@ Phases, in order; any failure exits non-zero:
    equal ``.sea`` bytes; the native file decoded by both backends, each
    ``.wav`` equal to ``sea_decode``'s PCM on the card; every wall beside
    the other backend's.
+9. The walkthroughs (``examples/torch/``) and the web fixtures (run after
+   phase 8 and before phase 5, so that their launches count in the kernels
+   line): (a) each example's ``main()`` in this process (``runpy``) with
+   ``--device cuda`` at the JAX examples' default sizes -- transcode
+   (44,100 frames, CBR and ``--vbr``), streaming (50,000 frames), seek
+   (200,000 frames), corpus (16 files, ``--mesh``, CBR and ``--vbr``) and
+   metadata -- each asserting its own property, with the launch counts set
+   to 0 just before and read just after: each must launch the search and
+   the fused decode of its mode; (b) ``examples/torch/distributed.py
+   --device cuda`` as a child, two worker processes on ``cuda:0``, every
+   file's bytes equal to the single-process encode; (c) every stream of
+   ``web/test_fixtures.json`` (53) decoded by the batch engine and the
+   sessions, PCM equal to its ``decoded``. One wall each, and ``phase9_s``.
 
 The last lines are the kernels' JSON line, the card line and the result
 line. Imports nothing of JAX or of the JAX package.
@@ -1365,6 +1380,31 @@ def corpus_calls(corpus, mode):
     return calls, per_file_s
 
 
+def empty_corpus_encode():
+    """An all-empty corpus (1 and 3 empty stereo files, CBR and VBR,
+    unsharded and over [cuda:0] x 2): one 22-byte header-only file each,
+    equal to per-file ``sea_encode``, and no search launch."""
+    import torch
+
+    from sea_codec_torch import EncoderSettings, sea_encode
+    from sea_codec_torch.batch import encode_corpus
+    from sea_codec_torch.parallel.pipeline import make_mesh
+
+    mesh = make_mesh(devices=[torch.device("cuda", 0)] * 2)
+    empty = np.zeros(0, np.int16)
+    for st in (EncoderSettings(), vbr_settings()):
+        want = sea_encode(empty, CORPUS_RATE, 2, st)
+        check(len(want) == 22, f"empty file vbr={st.vbr}: {len(want)} bytes, want a 22-byte header")
+        before = launch_counts()["window_search"]
+        for n in (1, 3):
+            for where in ({}, {"mesh": mesh}):
+                out = encode_corpus([empty] * n, CORPUS_RATE, 2, st, **where)
+                check(out == [want] * n, f"all-empty corpus of {n} vbr={st.vbr} {where}: != per-file sea_encode")
+        check(launch_counts()["window_search"] == before, f"all-empty corpus vbr={st.vbr} launched the search")
+    log("[phase 4] encode_corpus on all-empty corpora (1 and 3 files, CBR and VBR, unsharded and over "
+        "[cuda:0] x 2): 22-byte headers == per-file sea_encode, no search launch")
+
+
 def corpus_encode_path(result, corpus):
     """``encode_corpus`` on the card, both modes: (a) bench.py's corpus
     shape, 256 stereo files CBR and 64 VBR, against per-file ``sea_encode``
@@ -1379,6 +1419,7 @@ def corpus_encode_path(result, corpus):
     from sea_codec_torch import EncoderSettings, sea_encode
 
     vbr_loop_never_waits()
+    empty_corpus_encode()
     bench = {}
     for mode, st, n, seed0 in (("cbr", EncoderSettings(), 256, 0), ("vbr", vbr_settings(), 64, 50_000)):
         files = bench_corpus(n, seed0)
@@ -2678,6 +2719,149 @@ def native_path(result, pcm, enc, enc_vbr, bench, corpus):
     log(f"[phase 8] total {result['main']['phase8_s']:.2f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the walkthroughs (examples/torch/) and the web fixtures (run
+# after phase 8 and before phase 5, so that their launches count in the
+# kernels line)
+# ---------------------------------------------------------------------------
+
+CBR_KERNELS = ("window_search", "fused_decode_cbr")
+VBR_KERNELS = ("window_search_full", "window_search_ranks_only", "fused_decode_vbr")
+# (label, script, arguments, kernels the run must launch), at the JAX
+# examples' default sizes: the sizes the walkthroughs document
+EXAMPLE_RUNS = (
+    ("example_transcode_cbr", "transcode.py", [], CBR_KERNELS),
+    ("example_transcode_vbr", "transcode.py", ["--vbr"], VBR_KERNELS),
+    ("example_streaming", "streaming.py", [], CBR_KERNELS),
+    ("example_seek", "seek.py", [], CBR_KERNELS),
+    ("example_corpus_cbr", "corpus.py", ["--mesh"], CBR_KERNELS),
+    ("example_corpus_vbr", "corpus.py", ["--mesh", "--vbr"], VBR_KERNELS),
+    ("example_metadata", "metadata.py", [], CBR_KERNELS),
+)
+
+
+def run_example(here, script, argv):
+    """An example's ``main()`` in this process (``runpy.run_path``, then
+    ``sys.argv`` set): its output, and its wall on the card. Any exception
+    (an example asserts its own property) fails the smoke."""
+    import contextlib
+    import io
+    import runpy
+    import traceback
+
+    import torch
+
+    path = os.path.join(here, "examples", "torch", script)
+    main = runpy.run_path(path)["main"]
+    old, sys.argv = sys.argv, [path, *argv]
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = main()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    except Exception as e:
+        raise SmokeFailure(f"examples/torch/{script} {' '.join(argv)}: {type(e).__name__}: {e}\n"
+                           f"{traceback.format_exc()[-3000:]}\n{out.getvalue()[-2000:]}") from e
+    finally:
+        sys.argv = old
+    check(rc == 0, f"examples/torch/{script} {' '.join(argv)}: exit code {rc}")
+    return out.getvalue(), wall
+
+
+def example_runs(result, here, tmp):
+    """(a) Each in-process example with ``--device cuda``, the launch counts
+    set to 0 just before and read just after: it must launch the search
+    and the fused decode of its mode."""
+    from sea_codec_torch.utils.signal import gen_test_signal
+    from sea_codec_torch.utils.wav import read_wav
+
+    for label, script, argv, kernels in EXAMPLE_RUNS:
+        argv = [*argv, "--device", "cuda"]
+        wav = os.path.join(tmp, label + ".wav")
+        if script == "transcode.py":
+            argv += ["--out", wav]
+        reset_launch_counts()
+        text, wall = run_example(here, script, argv)
+        counts = launch_counts()
+        counts["window_search_full"] = counts["window_search"] - counts["window_search_ranks_only"]
+        result["launches"][label] = counts
+        for name in kernels:
+            check(counts[name] > 0, f"{label}: examples/torch/{script} never launched {name}: {counts}")
+        if script == "transcode.py":
+            check(read_wav(wav).samples.size == gen_test_signal(2, 44100).size,
+                  f"{label}: the written .wav has the wrong length")
+        result["main"][label + "_s"] = wall
+        log(f"[phase 9] {label}: examples/torch/{script} {' '.join(argv)}: {wall:.4f} s; launches {counts}; "
+            f"card {result['card']}\n" + "\n".join("    " + line for line in text.strip().splitlines()))
+
+
+def distributed_example(result, here):
+    """(b) ``examples/torch/distributed.py --device cuda`` as a child: two
+    worker processes on ``cuda:0`` in a gloo group, each file's bytes held
+    by the parent to a single-process ``encode_corpus``. A rendezvous
+    failure is retried once; any other failure fails."""
+    argv = [sys.executable, os.path.join(here, "examples", "torch", "distributed.py"), "--device", "cuda"]
+    for attempt in range(2):
+        t0 = time.perf_counter()
+        rcs, text = run_children([argv], here, 300)
+        wall = time.perf_counter() - t0
+        if rcs == [0]:
+            break
+        check(attempt == 0 and any(m in text for m in RENDEZVOUS_ERRORS),
+              f"examples/torch/distributed.py: exit code {rcs[0]}:\n{text}")
+    check("byte-identical" in text, f"examples/torch/distributed.py printed no result:\n{text}")
+    result["main"]["example_distributed_s"] = wall
+    log(f"[phase 9] example_distributed: examples/torch/distributed.py --device cuda (a child, 2 workers on "
+        f"cuda:0): {wall:.4f} s (interpreter starts, process group and kernel load included); "
+        f"card {result['card']}\n" + "\n".join("    " + line for line in text.strip().splitlines()[-4:]))
+
+
+def web_fixtures(result, here):
+    """(c) Every stream of ``web/test_fixtures.json`` decoded on the card by
+    the batch engine and by the sessions: PCM equal to its ``decoded``."""
+    import base64
+
+    from sea_codec_torch import sea_decode
+
+    with open(os.path.join(here, "web", "test_fixtures.json")) as f:
+        fixtures = json.load(f)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    samples = 0
+    for name, fx in sorted(fixtures.items()):
+        enc = base64.b64decode(fx["encoded"])
+        want = np.frombuffer(base64.b64decode(fx["decoded"]), dtype="<i2")
+        samples += want.size
+        for engine in ("batch", "session"):
+            dec = sea_decode(enc, engine=engine)
+            check((dec.sample_rate, dec.channels) == (fx["rate"], fx["channels"]) and np.array_equal(dec.samples, want),
+                  f"web fixture {name}, engine {engine}: PCM != its decoded")
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    result["launches"]["web_fixtures"] = counts
+    for name in ("fused_decode_cbr", "fused_decode_vbr"):
+        check(counts[name] > 0, f"web fixtures: {name} never launched: {counts}")
+    result["main"]["web_fixtures_s"] = wall
+    log(f"[phase 9] web/test_fixtures.json: {len(fixtures)} streams, {samples} samples, decoded on the card by "
+        f"the batch engine and the sessions, PCM == decoded, in {wall:.4f} s; launches {counts}")
+
+
+def examples_path(result, here):
+    """Phase 9, in a temporary directory removed afterwards."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        example_runs(result, here, tmp)
+    distributed_example(result, here)
+    web_fixtures(result, here)
+    result["main"]["phase9_s"] = time.perf_counter() - t0
+    log(f"[phase 9] phase9_s {result['main']['phase9_s']:.2f} s; card {result['card']}")
+
+
 def run(here):
     from concurrent.futures import ThreadPoolExecutor
 
@@ -2727,6 +2911,7 @@ def run(here):
     front_ends(result, here, pcm, enc, enc_vbr, bench, corpus)
     serving_path(result, here, enc, enc_vbr)
     native_path(result, pcm, enc, enc_vbr, bench, corpus)
+    examples_path(result, here)
     del corpus, bench
     clock_mhz = float(smi("clocks.max.sm", ",nounits"))
     kernels = []

@@ -21,6 +21,7 @@ from sea_codec_torch.utils.profiling import StageTimes
 from sea_codec_torch.utils.signal import TEST_SAMPLE_RATE, varied_signal
 from sea_codec_tpu import EncoderSettings as JaxSettings
 from sea_codec_tpu import batch as j_batch
+from sea_codec_tpu import sea_encode as j_sea_encode
 from sea_codec_tpu.ops import encode_file as j_encode_file
 from sea_codec_tpu.ops import serialize_device as j_serialize
 
@@ -105,6 +106,30 @@ def test_encode_corpus_several_groups_in_flight(monkeypatch, search_calls):
         del search_calls[:]
         assert batch.encode_corpus(files, TEST_SAMPLE_RATE, 2, st, pipeline_depth=depth, device="cpu") == want
         assert len(search_calls) == 4  # the empty file launches nothing
+
+
+@pytest.mark.parametrize("mesh_entries", [None, 4])
+@pytest.mark.parametrize("n_files", [1, 3])
+@pytest.mark.parametrize("vbr", [False, True])
+def test_encode_corpus_all_empty(vbr, n_files, mesh_entries, search_calls):
+    """A corpus whose files are all empty: one header-only file each (22
+    bytes), equal to the port's and the JAX package's per-file
+    ``sea_encode``, with no search launch, unsharded and over a mesh of CPU
+    entries. (The JAX package's ``encode_corpus`` raises ZeroDivisionError
+    here in CBR, so it is not the reference.)"""
+    from sea_codec_torch.parallel import pipeline
+
+    st = EncoderSettings(residual_bits=2.5 if vbr else 3.0, vbr=vbr)
+    files = [np.zeros(0, np.int16) for _ in range(n_files)]
+    where = {"device": "cpu"}
+    if mesh_entries:
+        where = {"mesh": pipeline.make_mesh(devices=[torch.device("cpu")] * mesh_entries)}
+    out = batch.encode_corpus(files, TEST_SAMPLE_RATE, 2, st, **where)
+    assert search_calls == []
+    assert out == _per_file(files, 2, st)
+    jst = JaxSettings(residual_bits=st.residual_bits, vbr=vbr)
+    assert out == [j_sea_encode(f, TEST_SAMPLE_RATE, 2, jst) for f in files]
+    assert [len(o) for o in out] == [22] * n_files
 
 
 def _jax_lanes(samples, rs, n_valid, hist, wts, prev, sff, sfb):
