@@ -1,0 +1,3 @@
+"""% of the traced decode window with nothing on the card (`readers.idle_pct`)."""
+
+from seabench.readers import idle_pct as read  # noqa: F401

@@ -1,0 +1,6 @@
+"""ms a call of CBR `batch.encode_corpus`'s host assembly of the containers
+(its `encode_assemble` stage in `PIPELINE_TIMES`)."""
+
+
+def read(ctx):
+    return ctx.per_call_ms("encode_assemble")

@@ -1,0 +1,7 @@
+"""% of its roofline that `csrc/fused_decode_vbr.cu` reaches (`readers.roofline_pct`)."""
+
+from seabench.readers import roofline_pct
+
+
+def read(ctx):
+    return roofline_pct(ctx, "fused_decode_vbr", "fused_decode_vbr_kernel")
