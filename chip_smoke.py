@@ -1253,7 +1253,7 @@ def corpus_path(result, corpus):
     finally:
         batch.PIPELINE_TIMES = None
     check(all(np.array_equal(o.samples, single[k]) for o, k in zip(outs, which)), "attributed decode_corpus != decode_sea")
-    log(f"[phase 4] decode_corpus stages, default routing, PIPELINE_TIMES set (uploads synchronized), "
+    log(f"[phase 4] decode_corpus stages, default routing, PIPELINE_TIMES set (stages time the host; nothing synchronizes), "
         f"{wall:.4f} s; card {result['card']}:\n{report.report()}")
     result["main"]["corpus"]["stages"] = dict(report)
     result["main"]["corpus"]["stages_wall_s"] = wall

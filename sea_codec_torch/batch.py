@@ -23,8 +23,8 @@ LMS carry and valid lengths), so a corpus takes about as long on the card
 as its longest file.
 
 ``PIPELINE_TIMES``: when a caller installs a ``utils.profiling.StageTimes``
-here, ``encode_corpus`` and ``decode_corpus`` record where their wall time
-goes (see ``_pt``).
+here, ``encode_corpus``, ``decode_corpus`` and ``decode_range`` record
+where their wall time goes (see ``_pt``).
 
 Output is byte-identical to ``sea_codec_tpu.batch``.
 """
@@ -50,6 +50,7 @@ from .container import (
 )
 from .models.decoder import DecoderModel
 from .ops import bitpack
+from .ops import window_search as search_op
 from .ops.device_decode import decode_chunks_packed
 from .ops.encode_file import (
     corpus_cbr_packed,
@@ -73,42 +74,43 @@ _PACK_BLOCK_ROWS = 64  # chunks per numpy VBR residual pack; the bytes do not de
 # here, the corpus pipelines record where wall-clock goes --
 # ``encode_stage``/``decode_parse`` (host CPU: staging, container parse),
 # ``decode_tails`` (the tail rows' host repack), ``decode_stage`` (host
-# concatenation of a group's arrays), ``encode_put``/``decode_put``
-# (host->device upload), ``encode_fetch``/``decode_fetch`` (waiting for the
-# card's work not yet done and the device->host download),
-# ``encode_assemble``/``decode_assemble`` (host CPU: container serialize /
-# PCM reassembly), and ``*_put_bytes``/``*_fetch_bytes``, the bytes moved.
-# Without attribution the card works while the host stages and assembles;
-# with it, the put stages synchronize the card (so that they time the
-# upload), which serializes an upload against the work queued before it.
-# None (the default) costs nothing.
+# concatenation of a group's arrays), ``encode_put``/``decode_put`` (the
+# host's part of the upload: pinning, enqueue, a pageable copy),
+# ``encode_search`` (the host's enqueue of a lane group's search),
+# ``encode_fetch``/``decode_fetch`` (waiting for the card's work not yet
+# done and the device->host download), ``encode_assemble``/
+# ``decode_assemble`` (host CPU: container serialize / PCM reassembly) and
+# within VBR's ``encode_assemble`` ``encode_pack`` (``serialize_full_chunks``),
+# ``*_put_bytes``/``*_fetch_bytes``, the bytes moved, and
+# ``encode_search_launches_count``, the search's kernel launches; and
+# ``decode_range`` records ``range_split`` (header read and body slicing),
+# ``range_parse`` (host parse of the touched chunks) and ``range_decode``
+# (upload, launch, download and the wait for the card). Each stage is also
+# a profiler range (``utils.profiling.stage_timer``). No stage synchronizes
+# the card, so the card overlaps the host as it does without attribution;
+# the device's share of a stage is in a device trace. None (the default)
+# costs one test a stage.
 PIPELINE_TIMES = None
 
 
-def _pt(name: str, dev=None):
-    """stage_timer into PIPELINE_TIMES, or a no-op when attribution is off.
-    With a CUDA ``dev`` the stage synchronizes the card on entry and exit,
-    so that it measures its own work on the card, not the enqueue."""
+def _pt(name: str):
+    """stage_timer into PIPELINE_TIMES, or a no-op when attribution is off."""
     times = PIPELINE_TIMES
     if times is None:
         return contextlib.nullcontext()
-    if dev is None or dev.type != "cuda":
-        return stage_timer(times, name)
-    return _synced_stage(times, name, dev)
-
-
-@contextlib.contextmanager
-def _synced_stage(times, name, dev):
-    torch.cuda.synchronize(dev)
-    with stage_timer(times, name):
-        yield
-        torch.cuda.synchronize(dev)
+    return stage_timer(times, name)
 
 
 def _add_bytes(name: str, arrays) -> None:
     times = PIPELINE_TIMES
     if times is not None:
         times.add(name, float(sum(a.nbytes for a in arrays if a is not None)))
+
+
+def _count(name: str, n: int) -> None:
+    times = PIPELINE_TIMES
+    if times is not None:
+        times.count(name, n)
 
 
 class ParsedBatch:
@@ -330,9 +332,16 @@ def decode_range(encoded: bytes, start_frame: int, n_frames: int, device=None) -
     reference ``README.md:88-121``), so only the chunks overlapping
     [start_frame, start_frame + n_frames) are read and decoded -- O(range),
     independent of the file position. Returns int16[n_frames * channels].
+
+    With ``PIPELINE_TIMES`` set, the stages ``range_split``
+    (``split_chunks``), ``range_parse`` (the touched chunks' host parse) and
+    ``range_decode`` (upload, launch, download and the wait for the card)
+    are recorded, each also a profiler range; the tail chunk, when touched,
+    adds to the last two.
     """
     dev = resolve_device(device)
-    header, rect, tail = split_chunks(encoded)
+    with _pt("range_split"):
+        header, rect, tail = split_chunks(encoded)
     fpc = header.frames_per_chunk
     c = header.channels
     total = header.total_frames
@@ -347,15 +356,19 @@ def decode_range(encoded: bytes, start_frame: int, n_frames: int, device=None) -
     parts = []
     n_rect = rect.shape[0] if rect is not None else 0
     if k0 < n_rect:
-        batch = parse_full_chunks(rect[k0 : min(k1, n_rect)], header)
-        args = _upload(batch.arrays, dev, batch.chunk_type == CHUNK_TYPE_VBR)
-        pcm = _decode_batch(batch, args, slice(None), fpc)
-        parts.append(pcm.cpu().numpy().reshape(-1, c))
+        with _pt("range_parse"):
+            batch = parse_full_chunks(rect[k0 : min(k1, n_rect)], header)
+        with _pt("range_decode"):
+            args = _upload(batch.arrays, dev, batch.chunk_type == CHUNK_TYPE_VBR)
+            pcm = _decode_batch(batch, args, slice(None), fpc)
+            parts.append(pcm.cpu().numpy().reshape(-1, c))
     if k1 > n_rect and tail:
         remaining = total - n_rect * fpc if total > 0 else None
-        chunk = SeaChunk.from_bytes(tail, header, remaining)
-        model = DecoderModel(c, chunk.scale_factor_bits, dev)
-        parts.append(model.decode_chunk(chunk).reshape(-1, c))
+        with _pt("range_parse"):
+            chunk = SeaChunk.from_bytes(tail, header, remaining)
+        with _pt("range_decode"):
+            model = DecoderModel(c, chunk.scale_factor_bits, dev)
+            parts.append(model.decode_chunk(chunk).reshape(-1, c))
     pcm = np.concatenate(parts) if parts else np.zeros((0, c), np.int16)
     off = start_frame - k0 * fpc
     return pcm[off : off + n_frames].reshape(-1)
@@ -393,7 +406,9 @@ def decode_corpus(
     With ``PIPELINE_TIMES`` set, the stages ``decode_parse``,
     ``decode_tails``, ``decode_stage``, ``decode_put``, ``decode_fetch`` and
     ``decode_assemble`` and the ``decode_put_bytes``/``decode_fetch_bytes``
-    counters are recorded, as in the JAX package.
+    counters are recorded, as in the JAX package, each stage also a
+    profiler range. ``decode_put`` is the host's part of the upload (a
+    pageable copy's staging and enqueue): no stage synchronizes the card.
 
     ``mesh``: a ``parallel.pipeline.Mesh`` of more than one entry splits
     each launch batch into ``mesh.size`` contiguous row ranges, each decoded
@@ -473,7 +488,7 @@ def decode_corpus(
                     continue
                 sl = slice(start + lo, start + hi)
                 with shard.on():
-                    with _pt("decode_put", shard.device):
+                    with _pt("decode_put"):
                         args = _upload([a[sl] for a in arrays], shard.device, not residual_size)
                     _add_bytes("decode_put_bytes", args)
                     # pending holds the only reference to each output, so a
@@ -886,7 +901,7 @@ class _Transfers:
     def put(self, arrays):
         """Host tensors or numpy arrays -> tensors on the device, the
         compute stream waiting for them."""
-        with _pt("encode_put", self.dev):
+        with _pt("encode_put"):
             outs = hosts = [a if torch.is_tensor(a) else torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
             if self.cuda:
                 compute = torch.cuda.current_stream(self.dev)
@@ -968,7 +983,13 @@ def encode_corpus(
     With ``PIPELINE_TIMES`` set, the stages ``encode_stage``,
     ``encode_put``, ``encode_fetch`` and ``encode_assemble`` and the
     ``encode_put_bytes``/``encode_fetch_bytes`` counters are recorded, as in
-    the JAX package. Not carried over: its 128-lane groups (blocks) and their
+    the JAX package, and besides ``encode_search`` (the host's enqueue of a
+    group's search launches), ``encode_pack`` (VBR: ``serialize_full_chunks``
+    inside ``encode_assemble``) and ``encode_search_launches_count`` (the
+    ``window_search`` launches of the ``encode_search`` stages); each stage
+    is also a profiler range. ``encode_put`` is the host's part of the
+    upload (pinning and enqueue): no stage synchronizes the card. Not
+    carried over: its 128-lane groups (blocks) and their
     padding to a whole number of mesh shards, its relay batching of several
     groups a call, and its one-file-at-a-time fallback above 128 channels or
     at sfb 8: every legal configuration rides the lane-packed path here."""
@@ -1052,26 +1073,29 @@ def encode_corpus(
         w0 = lms_init_weights(c, dev).repeat(nf, 1)
         p0 = torch.zeros(b, dtype=torch.int32, device=dev)
         skw = dict(scale_factor_frames=sff, scale_factor_bits=sfb, n_files=nf)
-        if not settings.vbr:
-            outs = corpus_cbr_packed(
-                x, frames_d, tail_idx_d, h0, w0, p0, residual_size=residual_size, **skw
-            )[:5]
-        else:
-            nc_full = max(fr) // fpc
-            sf, codes, sizes, ehist, ewts, fh, fw, fp = corpus_vbr_nv(
-                x[:nc_full], frames_d, h0, w0, p0, base=base, dist=(m1, p1, p2), **skw
-            )
-            outs = [sf, codes, sizes, ehist, ewts]
-            if tails:
-                # each tail's samples: its file's chunk at the tail index
-                wt = -(-max(fr[j] % fpc for j in tails) // sff)
-                k_lane = tail_idx_d.repeat_interleave(c)[tail_lanes_d]
-                xt = x[k_lane, : wt * sff, tail_lanes_d].T.contiguous()
-                ht, wtt = fh[tail_lanes_d], fw[tail_lanes_d]
-                outs += [ht, wtt, *_encode_tails_vbr_batched(
-                    xt, tail_fr_d, ht, wtt, fp[tail_lanes_d], tail_fr.tolist(),
-                    channels=c, sfb=sfb, sff=sff, target=target,
-                )]
+        launches0 = search_op.launches
+        with _pt("encode_search"):
+            if not settings.vbr:
+                outs = corpus_cbr_packed(
+                    x, frames_d, tail_idx_d, h0, w0, p0, residual_size=residual_size, **skw
+                )[:5]
+            else:
+                nc_full = max(fr) // fpc
+                sf, codes, sizes, ehist, ewts, fh, fw, fp = corpus_vbr_nv(
+                    x[:nc_full], frames_d, h0, w0, p0, base=base, dist=(m1, p1, p2), **skw
+                )
+                outs = [sf, codes, sizes, ehist, ewts]
+                if tails:
+                    # each tail's samples: its file's chunk at the tail index
+                    wt = -(-max(fr[j] % fpc for j in tails) // sff)
+                    k_lane = tail_idx_d.repeat_interleave(c)[tail_lanes_d]
+                    xt = x[k_lane, : wt * sff, tail_lanes_d].T.contiguous()
+                    ht, wtt = fh[tail_lanes_d], fw[tail_lanes_d]
+                    outs += [ht, wtt, *_encode_tails_vbr_batched(
+                        xt, tail_fr_d, ht, wtt, fp[tail_lanes_d], tail_fr.tolist(),
+                        channels=c, sfb=sfb, sff=sff, target=target,
+                    )]
+        _count("encode_search_launches_count", search_op.launches - launches0)
         return idxs, xfer.get(outs), outs
 
     def assemble(entry) -> None:
@@ -1100,11 +1124,12 @@ def encode_corpus(
                 k = f // fpc
                 body = []
                 if k:
-                    rect = serialize_full_chunks(
-                        sf[:k, :, lanes], codes[:k, :, lanes], sizes[:k, :, lanes],
-                        ehist[:k, lanes], ewts[:k, lanes],
-                        scale_factor_bits=sfb, scale_factor_frames=sff, residual_size=residual_size,
-                    )
+                    with _pt("encode_pack"):
+                        rect = serialize_full_chunks(
+                            sf[:k, :, lanes], codes[:k, :, lanes], sizes[:k, :, lanes],
+                            ehist[:k, lanes], ewts[:k, lanes],
+                            scale_factor_bits=sfb, scale_factor_frames=sff, residual_size=residual_size,
+                        )
                     body.extend(bytes(row) for row in rect)
                 if f % fpc:
                     tl = slice(t * c, (t + 1) * c)

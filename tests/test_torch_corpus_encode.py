@@ -335,9 +335,13 @@ def test_stage_times_recorded_and_bytes_unchanged():
 
 def test_device_trace_writes_where_sea_profile_names(tmp_path, monkeypatch):
     """``device_trace`` records a torch.profiler Chrome trace into the
-    directory ``SEA_PROFILE`` names, and does nothing without one."""
+    directory ``SEA_PROFILE`` names, and does nothing without one. While it
+    records, a ``StageTimes`` is installed, so the trace carries the
+    program's stages; ``PIPELINE_TIMES`` is None again afterwards."""
     from sea_codec_torch.utils.profiling import device_trace
 
+    enc = batch.encode_sea(varied_signal(2, 300, seed=3), TEST_SAMPLE_RATE, 2, EncoderSettings(frames_per_chunk=100),
+                           device="cpu")
     monkeypatch.delenv("SEA_PROFILE", raising=False)
     with device_trace():
         torch.ones(3).sum()
@@ -345,8 +349,11 @@ def test_device_trace_writes_where_sea_profile_names(tmp_path, monkeypatch):
     monkeypatch.setenv("SEA_PROFILE", str(tmp_path / "prof"))
     with device_trace():
         torch.ones(3).sum()
+        batch.decode_range(enc, 50, 100, device="cpu")
+    assert batch.PIPELINE_TIMES is None
     traces = list((tmp_path / "prof").glob("trace-*.json"))
     assert len(traces) == 1 and traces[0].stat().st_size > 0
+    assert '"range_split"' in traces[0].read_text()
 
 
 @pytest.mark.parametrize(
