@@ -208,10 +208,16 @@ def parse_full_chunks(body: np.ndarray, header: SeaFileHeader) -> ParsedBatch:
 
 
 def split_chunks(encoded: bytes):
-    """(header, full_chunk_bytes uint8[N, chunk_size] | None, tail bytes)."""
+    """(header, full_chunk_bytes uint8[N, chunk_size] | None, tail bytes).
+
+    No copy of the file: ``rect`` is a view that borrows ``encoded``'s
+    buffer and keeps it alive (over ``bytes``, which is immutable, a
+    read-only view that can never change under the caller), and only the
+    tail, at most one chunk, is copied out. A caller that reads a few rows
+    touches only those rows' bytes."""
     reader = io.BytesIO(encoded)
     header = SeaFileHeader.from_reader(reader)
-    body = encoded[header.serialized_len :]
+    body = memoryview(encoded)[header.serialized_len :]
     cs = header.chunk_size
     fpc = header.frames_per_chunk
     total_frames = header.total_frames
@@ -229,10 +235,10 @@ def split_chunks(encoded: bytes):
         has_tail = False
     rect = None
     if n_full:
-        rect = np.frombuffer(body[: n_full * cs], dtype=np.uint8).reshape(n_full, cs)
+        rect = np.frombuffer(body, dtype=np.uint8, count=n_full * cs).reshape(n_full, cs)
     tail = b""
     if has_tail:
-        tail = body[n_full * cs :]
+        tail = bytes(body[n_full * cs :])
     return header, rect, tail
 
 
@@ -331,7 +337,10 @@ def decode_range(encoded: bytes, start_frame: int, n_frames: int, device=None) -
     Every chunk is self-contained (it carries its own LMS entry state,
     reference ``README.md:88-121``), so only the chunks overlapping
     [start_frame, start_frame + n_frames) are read and decoded -- O(range),
-    independent of the file position. Returns int16[n_frames * channels].
+    independent of the file position and of its length: ``split_chunks``
+    borrows ``encoded``'s buffer instead of copying it, so a request touches
+    only the header, the touched chunks' bytes and the tail chunk. Returns
+    int16[n_frames * channels].
 
     With ``PIPELINE_TIMES`` set, the stages ``range_split``
     (``split_chunks``), ``range_parse`` (the touched chunks' host parse) and
