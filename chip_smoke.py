@@ -1270,10 +1270,10 @@ def bench_corpus(n, seed0):
 
 
 def expected_corpus_launches(frames, c, st):
-    """Search launches of one ``encode_corpus`` call: one a lane group for
-    CBR; for VBR two a chunk index up to the group's most full chunks, and
-    two more where the group has a ragged tail."""
-    from sea_codec_torch.batch import _lane_groups
+    """Search launches of one ``encode_corpus`` call: one a slab of a lane
+    group for CBR; for VBR two a chunk index up to the group's most full
+    chunks, and two more where the group has a ragged tail."""
+    from sea_codec_torch.batch import _lane_groups, _slabs
 
     fpc = st.frames_per_chunk
     n = 0
@@ -1281,7 +1281,7 @@ def expected_corpus_launches(frames, c, st):
         fr = [frames[i] for i in g]
         if max(fr) == 0:
             continue
-        n += 2 * (max(fr) // fpc) + 2 * any(f % fpc for f in fr) if st.vbr else 1
+        n += 2 * (max(fr) // fpc) + 2 * any(f % fpc for f in fr) if st.vbr else len(_slabs(fr, c, fpc, False))
     return n
 
 

@@ -19,8 +19,9 @@ rows are packed on the device (``ops.serialize_device``), VBR rows on the
 host (``serialize_full_chunks``); the ragged tail chunk is encoded from the
 carried state (``models.cbr``, ``models.vbr``). ``encode_corpus`` packs
 many files' channels into the lanes of the same launches (each lane its own
-LMS carry and valid lengths), so a corpus takes about as long on the card
-as its longest file.
+LMS carry and valid lengths), run through time in slabs of chunk indices
+that bound device memory, so a corpus takes about as long on the card as
+its longest file.
 
 ``PIPELINE_TIMES``: when a caller installs a ``utils.profiling.StageTimes``
 here, ``encode_corpus``, ``decode_corpus`` and ``decode_range`` record
@@ -32,9 +33,13 @@ Output is byte-identical to ``sea_codec_tpu.batch``.
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import functools
 import io
+import mmap
 import os
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -76,13 +81,14 @@ _PACK_BLOCK_ROWS = 64  # chunks per numpy VBR residual pack; the bytes do not de
 # ``decode_tails`` (the tail rows' host repack), ``decode_stage`` (host
 # concatenation of a group's arrays), ``encode_put``/``decode_put`` (the
 # host's part of the upload: pinning, enqueue, a pageable copy),
-# ``encode_search`` (the host's enqueue of a lane group's search),
+# ``encode_search`` (the host's enqueue of a slab's search),
 # ``encode_fetch``/``decode_fetch`` (waiting for the card's work not yet
 # done and the device->host download), ``encode_assemble``/
 # ``decode_assemble`` (host CPU: container serialize / PCM reassembly) and
 # within VBR's ``encode_assemble`` ``encode_pack`` (``serialize_full_chunks``),
-# ``*_put_bytes``/``*_fetch_bytes``, the bytes moved, and
-# ``encode_search_launches_count``, the search's kernel launches; and
+# ``*_put_bytes``/``*_fetch_bytes``, the bytes moved,
+# ``encode_search_launches_count``, the search's kernel launches, and
+# ``encode_search_lanes_count``, the lanes of those launches; and
 # ``decode_range`` records ``range_split`` (header read and body slicing),
 # ``range_parse`` (host parse of the touched chunks) and ``range_decode``
 # (upload, launch, download and the wait for the card). Each stage is also
@@ -864,30 +870,131 @@ def encode_sea(
     return header.serialize() + b"".join(chunks)
 
 
-# encode_corpus sizes a lane group by the device memory it takes: per lane
-# and frame of the group's longest file, its samples (2 bytes), its codes
-# (1), the valid counts and scale factors (under 1), the device serializer's
-# int32 temporaries (about 8) and, for VBR, the stacked per-chunk outputs
-# (2); 16 bytes leave room. A group holds files up to _GROUP_DEVICE_BYTES.
+# encode_corpus sizes a lane group's slab, the run of chunk indices it
+# searches in one go, by the device memory it takes: per lane and frame of
+# the slab, its staged and laid-out samples (2 + 2 bytes), its codes (1),
+# the valid counts, scale factors and ranks (under 1), the device
+# serializer's int32 temporaries (about 8) and, for VBR, the stacked
+# per-chunk outputs (2); 16 bytes leave room (a CBR slab of 256 lanes x 436
+# chunks x 2,400 frames peaked at 3,949,203,456 bytes on an H100, 14.7 a
+# lane-frame). One slab stays within _GROUP_DEVICE_BYTES, whatever the
+# length of the group's files.
 _LANE_FRAME_BYTES = 16
 _GROUP_DEVICE_BYTES = 4 << 30
+# _copy (a slab's staging): host threads for a large copy, and the bytes of
+# each thread's piece
+_STAGE_THREADS = 8
+_STAGE_PIECE_BYTES = 16 << 20
+# _Container: host threads that write CBR containers, one a container; the
+# faults of fresh pages cost more on many threads at once than on a few
+_WRITE_THREADS = 2
+
+
+@functools.cache
+def _copy_pool() -> ThreadPoolExecutor:
+    return ThreadPoolExecutor(_STAGE_THREADS, thread_name_prefix="sea-copy")
+
+
+if hasattr(os, "register_at_fork"):  # a forked child has none of the pool's threads
+    os.register_at_fork(after_in_child=_copy_pool.cache_clear)
+
+
+def _copy(pairs) -> None:
+    """``np.copyto(dst, src)`` for each (dst, src) pair of 1-D arrays (a
+    slab's staging, into pinned pages already touched). A large copy is cut
+    into pieces of _STAGE_PIECE_BYTES copied by _STAGE_THREADS host
+    threads: numpy lets go of the interpreter lock while it copies, and one
+    thread copies several times slower than the host's memory can take."""
+    pieces = []
+    for dst, src in pairs:
+        step = max(1, _STAGE_PIECE_BYTES // dst.itemsize)
+        pieces += [(dst[s : s + step], src[s : s + step]) for s in range(0, src.size, step)]
+    if sum(d.nbytes for d, _s in pieces) <= _STAGE_PIECE_BYTES:
+        for p in pieces:
+            np.copyto(*p)
+        return
+    list(_copy_pool().map(lambda p: np.copyto(*p), pieces))
+
+
+_bytes_new = ctypes.PYFUNCTYPE(ctypes.py_object, ctypes.c_void_p, ctypes.c_ssize_t)(
+    ("PyBytes_FromStringAndSize", ctypes.pythonapi))
+_bytes_address = ctypes.PYFUNCTYPE(ctypes.c_void_p, ctypes.py_object)(
+    ("PyBytes_AsString", ctypes.pythonapi))
+
+
+class _Container:
+    """A file's container of a known length, written in place as its chunks
+    come in, on a host thread (``writer``) other than the one that enqueues
+    the card's work, so that no copy of the whole file is left for after
+    the card's last slab. ``data`` is a new ``bytes`` whose contents the
+    container writes before ``encode_corpus`` hands it out, as a C
+    extension fills ``PyBytes_FromStringAndSize(NULL, n)``; ``view`` is a
+    writable uint8 view of them; ``off`` the bytes placed so far, the
+    header first. The writer first touches every page of the container
+    (``_touch``), while the card searches the first slabs and the rows are
+    not in yet: the faults of fresh pages cost more than the copies
+    after them. Its writes run in order, one thread a container, so that
+    the touch never lands on a row."""
+
+    def __init__(self, head: bytes, n: int, writer: ThreadPoolExecutor):
+        self.data = _bytes_new(None, n)
+        raw = (ctypes.c_char * n).from_address(_bytes_address(self.data))
+        self.view = np.frombuffer(raw, np.uint8)
+        self.view[: len(head)] = np.frombuffer(head, np.uint8)
+        self.off = len(head)
+        self.writer = writer
+        self.writes = [writer.submit(self._touch, self.off)]
+
+    def _touch(self, start: int) -> None:
+        self.view[start :: mmap.PAGESIZE] = 0
+
+    def place(self, part) -> None:
+        """Write ``part``, ``bytes`` or a uint8 array of whole rows, next:
+        the copy is queued on the writer (which keeps ``part`` alive)."""
+        src = np.frombuffer(part, np.uint8) if isinstance(part, bytes) else part.reshape(-1)
+        dst = self.view[self.off : self.off + src.size]
+        self.writes.append(self.writer.submit(np.copyto, dst, src))
+        self.off += src.size
+
+    def done(self) -> bytes:
+        """``data``, once every write has run (raising a write's error)."""
+        for w in self.writes:
+            w.result()
+        if self.off != len(self.data):  # an unwritten byte would be whatever the memory held
+            raise AssertionError(f"container written to {self.off} of {len(self.data)} bytes")
+        return self.data
+
+
+def _slab_chunks(lanes: int, fpc: int) -> int:
+    """Chunk indices a slab of ``lanes`` lanes holds: the most whose
+    lanes x frames stay within _GROUP_DEVICE_BYTES, at least one."""
+    return max(1, _GROUP_DEVICE_BYTES // (lanes * fpc * _LANE_FRAME_BYTES))
 
 
 def _lane_groups(frames: list[int], c: int, fpc: int) -> list[list[int]]:
-    """File indices in groups of one launch each: longest files first, so
-    that a group's chain is its longest file's, and each group within
-    _GROUP_DEVICE_BYTES (at least one file)."""
+    """File indices in lane groups, longest files first. A group closes
+    only when its lanes at a slab of one chunk would pass
+    _GROUP_DEVICE_BYTES (it always holds one file), so the bound does not
+    depend on a file's length: ``encode_corpus`` runs a group through time
+    slab by slab (``_slabs``)."""
     order = sorted(range(len(frames)), key=lambda i: -frames[i])
     groups: list[list[int]] = []
     for i in order:
-        if groups:
-            g = groups[-1]
-            span = -(-frames[g[0]] // fpc) * fpc  # the group's longest file, in whole chunks
-            if (len(g) + 1) * c * span * _LANE_FRAME_BYTES <= _GROUP_DEVICE_BYTES:
-                g.append(i)
-                continue
-        groups.append([i])
+        if groups and (len(groups[-1]) + 1) * c * fpc * _LANE_FRAME_BYTES <= _GROUP_DEVICE_BYTES:
+            groups[-1].append(i)
+        else:
+            groups.append([i])
     return groups
+
+
+def _slabs(fr: list[int], c: int, fpc: int, full_only: bool) -> list[tuple[int, int]]:
+    """A lane group's slabs, [c0, c1) of chunk index, in order: the chunks
+    of its longest file of ``fr`` frames (its whole chunks only with
+    ``full_only``, as the VBR loop walks them; else its tail chunk too, as
+    the CBR scan walks it) in runs of ``_slab_chunks``."""
+    n = max((f // fpc if full_only else -(-f // fpc) for f in fr), default=0)
+    k = _slab_chunks(len(fr) * c, fpc)
+    return [(c0, min(n, c0 + k)) for c0 in range(0, n, k)]
 
 
 class _Transfers:
@@ -906,6 +1013,18 @@ class _Transfers:
         """An empty host tensor to stage into, pinned when the device is a
         card (so that its upload needs no copy into pinned memory first)."""
         return torch.empty(n, dtype=dtype, pin_memory=self.cuda)
+
+    def stage(self, arrays, dtype) -> torch.Tensor:
+        """1-D numpy ``arrays`` concatenated into one new host tensor
+        (``host``), copied by ``_copy``'s threads."""
+        flat = self.host(sum(a.size for a in arrays), dtype)
+        out, off = flat.numpy(), 0
+        pairs = []
+        for a in arrays:
+            pairs.append((out[off : off + a.size], a))
+            off += a.size
+        _copy(pairs)
+        return flat
 
     def put(self, arrays):
         """Host tensors or numpy arrays -> tensors on the device, the
@@ -960,32 +1079,41 @@ def encode_corpus(
     All files share ``channels`` and ``settings``; empty and sub-chunk files
     are allowed.
 
-    Files go into lane groups (``_lane_groups``: longest first, bounded by
-    device memory); each lane of a group's launches is one channel of one
-    file, with its own LMS carry and its own valid frames per window, so a
-    group takes about as long on the card as its longest file. CBR: one
-    search launch over every chunk of every file, ragged tails masked inside
-    the scan, the container rows serialized on the device
-    (``ops.encode_file.corpus_cbr_packed``); each file's tail chunk is
-    serialized on the host from its gathered outputs. VBR: a loop over
-    chunk index, two launches each over every lane, each file ranked on its
-    own (``ops.encode_file.corpus_vbr_nv``); then every ragged tail in two
-    more launches (``_encode_tails_vbr_batched``); rows packed on the host.
+    Files go into lane groups (``_lane_groups``: longest first, each
+    group's lanes bounded by device memory at a slab of one chunk); each
+    lane of a group's launches is one channel of one file, with its own LMS
+    carry and its own valid frames per window, so a group takes about as
+    long on the card as its longest file. A group runs through time slab
+    by slab (``_slabs``: as many chunk indices as its lanes fit in
+    ``_GROUP_DEVICE_BYTES``), each slab from the LMS state and previous
+    scale factor the slab before left, so that device memory does not grow
+    with a file's length. CBR: one search launch a slab over every chunk of
+    every file in it, ragged tails masked inside the scan, the container
+    rows serialized on the device (``ops.encode_file.corpus_cbr_packed``);
+    each file's tail chunk is serialized on the host from the outputs its
+    slab gathered; a file's container, whose length its frames fix, is
+    written in place slab by slab on host threads other than the one
+    that enqueues the card's work (``_Container``). VBR: a loop over chunk
+    index, two launches each over every lane, each file ranked on its own
+    (``ops.encode_file.corpus_vbr_nv``);
+    then every ragged tail of the group in two more launches from the
+    carry after its last slab (``_encode_tails_vbr_batched``); rows packed
+    on the host.
 
-    Pipelined: up to ``pipeline_depth`` groups are in flight before the
-    oldest is assembled. A group's upload runs on a side stream and its
+    Pipelined: up to ``pipeline_depth`` slabs are in flight before the
+    oldest is assembled. A slab's upload runs on a side stream and its
     download into pinned memory on another, both asynchronous, so the card
-    searches one group while the next one's samples go up and the last
-    one's outputs come down; the host waits for a group's download only
-    when it assembles that group's containers.
+    searches one slab while the host stages the next and the last one's
+    outputs come down; the host waits for a slab's download only when it
+    assembles that slab's rows.
 
     ``mesh``: a ``parallel.pipeline.Mesh`` of more than one entry deals
     the files to its entries, longest first, each to the entry with the
     least work so far; each entry forms its lane groups as above and runs
-    them on its own device and stream with its own transfer streams, one
-    host thread enqueueing the entries in turn
+    their slabs on its own device and stream with its own transfer
+    streams, one host thread enqueueing the entries in turn
     (``parallel.pipeline.encode_corpus_blocks_sharded``), up to
-    ``pipeline_depth`` groups an entry in flight. Outputs come back in file
+    ``pipeline_depth`` slabs an entry in flight. Outputs come back in file
     order, the bytes identical to ``mesh=None``; ``device`` must then be
     None. A mesh of one entry is the unsharded path on that entry's device.
 
@@ -993,9 +1121,11 @@ def encode_corpus(
     ``encode_put``, ``encode_fetch`` and ``encode_assemble`` and the
     ``encode_put_bytes``/``encode_fetch_bytes`` counters are recorded, as in
     the JAX package, and besides ``encode_search`` (the host's enqueue of a
-    group's search launches), ``encode_pack`` (VBR: ``serialize_full_chunks``
-    inside ``encode_assemble``) and ``encode_search_launches_count`` (the
-    ``window_search`` launches of the ``encode_search`` stages); each stage
+    slab's search launches), ``encode_pack`` (VBR: ``serialize_full_chunks``
+    inside ``encode_assemble``), ``encode_search_launches_count`` (the
+    ``window_search`` launches of the ``encode_search`` stages) and
+    ``encode_search_lanes_count`` (the lanes of those launches, summed);
+    each stage
     is also a profiler range. ``encode_put`` is the host's part of the
     upload (pinning and enqueue): no stage synchronizes the card. Not
     carried over: its 128-lane groups (blocks) and their
@@ -1026,20 +1156,42 @@ def encode_corpus(
         residual_size = chunk_residual_size(settings.residual_bits, target)
         m1, _t, p1, p2 = interpolate_distribution((fpc * c) // sff, target)
     chunk_type = CHUNK_TYPE_VBR if settings.vbr else CHUNK_TYPE_CBR
-    full_size = cbr_chunk_size(c, fpc, sfb, sff, residual_size)  # a full CBR chunk's bytes
-    results: list[bytes] = [b""] * len(files)
+    results: list = [b""] * len(files)  # bytes, or a CBR _Container until its writes have run
 
-    def finish(i: int, body: list[bytes], chunk_size: int = 0) -> None:
-        """File ``i``'s container: the header, then ``body``, whose first
-        chunk has ``chunk_size`` bytes."""
-        header = SeaFileHeader(
-            version=1, channels=c, chunk_size=0, frames_per_chunk=fpc,
+    full_size = cbr_chunk_size(c, fpc, sfb, sff, residual_size)  # a full CBR chunk's bytes
+
+    def header(i: int, chunk_size: int) -> bytes:
+        _check_chunk_size(chunk_size)
+        return SeaFileHeader(
+            version=1, channels=c, chunk_size=chunk_size, frames_per_chunk=fpc,
             sample_rate=sample_rate, total_frames=frames[i], metadata=settings.metadata,
-        )
+        ).serialize()
+
+    n_writers = 0 if settings.vbr else _WRITE_THREADS
+    writers = [ThreadPoolExecutor(1, thread_name_prefix="sea-write") for _ in range(n_writers)]
+
+    def container(i: int, j: int) -> _Container:
+        """CBR file ``i``'s container, whose length its frames fix (the
+        header, its full chunks, then its tail chunk), written on the
+        ``j``-th writer, round robin."""
+        n_full, ft = divmod(frames[i], fpc)
+        tail_size = cbr_chunk_size(c, ft, sfb, sff, residual_size) if ft else 0
+        head = header(i, full_size if n_full else tail_size)
+        n = len(head) + n_full * full_size + tail_size
+        return _Container(head, n, writers[j % len(writers)])
+
+    def finish(i: int, body) -> None:
+        """File ``i``'s container: a CBR ``_Container``, handed out once
+        written, or the header, then ``body``, its VBR chunks in order as
+        ``bytes`` (one chunk) or uint8 arrays [n, chunk_size] of whole rows,
+        joined in one copy."""
+        if isinstance(body, _Container):
+            results[i] = body
+            return
+        size = 0
         if body:
-            _check_chunk_size(chunk_size)
-            header.chunk_size = chunk_size
-        results[i] = header.serialize() + b"".join(body)
+            size = body[0].shape[1] if isinstance(body[0], np.ndarray) else len(body[0])
+        results[i] = b"".join([header(i, size), *body])
 
     def tail_chunk(fk, eh, ew, sf_t, codes_t, sizes_t=None) -> bytes:
         w_real = -(-fk // sff)
@@ -1052,117 +1204,156 @@ def encode_corpus(
             residuals=codes_t[:fk].reshape(-1),
         ).serialize()
 
-    def launch(idxs, xfer):
-        """Stage, upload (through ``xfer``) and launch one group on
-        ``xfer.dev``'s current stream; returns what ``assemble`` takes."""
-        dev = xfer.dev
+    def launch(idxs, xfer) -> list:
+        """One lane group's steps, to be called in order on ``xfer.dev``'s
+        current stream: each stages, uploads (through ``xfer``) and
+        searches one slab (``_slabs``) from the LMS state and previous
+        scale factor the slab before left, and starts its download; for
+        VBR a last step encodes the ragged tails from the carry after the
+        last slab. Each returns what ``assemble`` takes."""
         fr = [frames[i] for i in idxs]
-        nc = max(-(-f // fpc) for f in fr)
-        if nc == 0:  # empty files only
-            return idxs, None, None
-        nf, b = len(idxs), len(idxs) * c
+        # each file's CBR container, or its VBR chunks in order
+        bodies = [[] for _ in idxs] if settings.vbr else [container(i, j) for j, i in enumerate(idxs)]
+        group = (idxs, fr, bodies)
         tails = [j for j, f in enumerate(fr) if f % fpc]
-        with _pt("encode_stage"):
-            flat = xfer.host(sum(fr) * c, torch.int16)
-            np.concatenate([files[i][: f * c] for i, f in zip(idxs, fr)], out=flat.numpy())
-            frames_lane = np.repeat(np.asarray(fr, np.int32), c)
-            tail_idx = np.asarray([f // fpc for f in fr], np.int64)
-            tail_lanes = np.asarray([j * c + ch for j in tails for ch in range(c)], np.int64)
-            tail_fr = np.asarray([fr[j] % fpc for j in tails], np.int64)
-        flat_d, frames_d, tail_idx_d, tail_lanes_d, tail_fr_d = xfer.put(
-            [flat, frames_lane, tail_idx, tail_lanes, tail_fr]
-        )
-        x = torch.zeros((nc * fpc, b), dtype=torch.int16, device=dev)
-        off = 0
-        for j, f in enumerate(fr):
-            x[:f, j * c : (j + 1) * c] = flat_d[off : off + f * c].view(f, c)
-            off += f * c
-        x = x.view(nc, fpc, b)
-        h0 = lms_init_history(c, dev).repeat(nf, 1)
-        w0 = lms_init_weights(c, dev).repeat(nf, 1)
-        p0 = torch.zeros(b, dtype=torch.int32, device=dev)
-        skw = dict(scale_factor_frames=sff, scale_factor_bits=sfb, n_files=nf)
-        launches0 = search_op.launches
-        with _pt("encode_search"):
+        slabs = _slabs(fr, c, fpc, full_only=settings.vbr)
+        if not slabs and not (settings.vbr and tails):  # empty files only
+            return [lambda: (group, None, None, None)]
+        nf, b = len(idxs), len(idxs) * c
+        carry = None  # (hist, wts, prev) after the last slab searched
+
+        def search(fn):
+            launches0, lanes0 = search_op.launches, search_op.lanes
+            with _pt("encode_search"):
+                outs = fn()
+            _count("encode_search_launches_count", search_op.launches - launches0)
+            _count("encode_search_lanes_count", search_op.lanes - lanes0)
+            return outs
+
+        def start():
+            dev = xfer.dev
+            return (lms_init_history(c, dev).repeat(nf, 1), lms_init_weights(c, dev).repeat(nf, 1),
+                    torch.zeros(b, dtype=torch.int32, device=dev))
+
+        def slab(c0, c1):
+            nonlocal carry
+            dev = xfer.dev
+            lo, ks = c0 * fpc, c1 - c0
+            # each file's frames in the slab: VBR stages whole chunks only
+            seg = [min(max((f // fpc * fpc if settings.vbr else f) - lo, 0), ks * fpc) for f in fr]
+            with _pt("encode_stage"):
+                flat = xfer.stage([files[i][lo * c : (lo + n) * c] for i, n in zip(idxs, seg)], torch.int16)
+                frames_lane = np.repeat(np.asarray(seg, np.int32), c)
+                tail_idx = np.asarray([min(max(f // fpc - c0, 0), ks - 1) for f in fr], np.int64)
+            flat_d, frames_d, tail_idx_d = xfer.put([flat, frames_lane, tail_idx])
+            x = torch.zeros((ks * fpc, b), dtype=torch.int16, device=dev)
+            off = 0
+            for j, n in enumerate(seg):
+                x[:n, j * c : (j + 1) * c] = flat_d[off : off + n * c].view(n, c)
+                off += n * c
+            x = x.view(ks, fpc, b)
+            h, w, p = carry or start()
+            skw = dict(scale_factor_frames=sff, scale_factor_bits=sfb, n_files=nf)
             if not settings.vbr:
-                outs = corpus_cbr_packed(
-                    x, frames_d, tail_idx_d, h0, w0, p0, residual_size=residual_size, **skw
-                )[:5]
+                *outs, h, w, p = search(lambda: corpus_cbr_packed(
+                    x, frames_d, tail_idx_d, h, w, p, residual_size=residual_size, **skw))
             else:
-                nc_full = max(fr) // fpc
-                sf, codes, sizes, ehist, ewts, fh, fw, fp = corpus_vbr_nv(
-                    x[:nc_full], frames_d, h0, w0, p0, base=base, dist=(m1, p1, p2), **skw
-                )
-                outs = [sf, codes, sizes, ehist, ewts]
-                if tails:
-                    # each tail's samples: its file's chunk at the tail index
-                    wt = -(-max(fr[j] % fpc for j in tails) // sff)
-                    k_lane = tail_idx_d.repeat_interleave(c)[tail_lanes_d]
-                    xt = x[k_lane, : wt * sff, tail_lanes_d].T.contiguous()
-                    ht, wtt = fh[tail_lanes_d], fw[tail_lanes_d]
-                    outs += [ht, wtt, *_encode_tails_vbr_batched(
-                        xt, tail_fr_d, ht, wtt, fp[tail_lanes_d], tail_fr.tolist(),
-                        channels=c, sfb=sfb, sff=sff, target=target,
-                    )]
-        _count("encode_search_launches_count", search_op.launches - launches0)
-        return idxs, xfer.get(outs), outs
+                *outs, h, w, p = search(lambda: corpus_vbr_nv(
+                    x, frames_d, h, w, p, base=base, dist=(m1, p1, p2), **skw))
+            carry = (h, w, p)
+            return group, (c0, c1), xfer.get(outs), outs
+
+        def tail_step():
+            dev = xfer.dev
+            t_fr = [fr[j] % fpc for j in tails]
+            wt = -(-max(t_fr) // sff)
+            with _pt("encode_stage"):
+                # each tail's samples, zero-padded, lanes tail-major
+                xt = xfer.host(wt * sff * len(tails) * c, torch.int16)
+                xt_np = xt.numpy().reshape(wt * sff, len(tails) * c)
+                xt_np[:] = 0
+                for t, (j, ft) in enumerate(zip(tails, t_fr)):
+                    xt_np[:ft, t * c : (t + 1) * c] = files[idxs[j]][(fr[j] - ft) * c : fr[j] * c].reshape(ft, c)
+                tail_lanes = np.asarray([j * c + ch for j in tails for ch in range(c)], np.int64)
+                tail_fr = np.asarray(t_fr, np.int64)
+            xt_d, tail_lanes_d, tail_fr_d = xfer.put([xt, tail_lanes, tail_fr])
+            h, w, p = carry or start()
+            ht, wtt = h[tail_lanes_d], w[tail_lanes_d]
+            outs = [ht, wtt, *search(lambda: _encode_tails_vbr_batched(
+                xt_d.view(wt * sff, -1), tail_fr_d, ht, wtt, p[tail_lanes_d], t_fr,
+                channels=c, sfb=sfb, sff=sff, target=target,
+            ))]
+            return group, None, xfer.get(outs), outs
+
+        steps = [functools.partial(slab, c0, c1) for c0, c1 in slabs]
+        return steps + [tail_step] * (settings.vbr and bool(tails))
 
     def assemble(entry) -> None:
-        idxs, wait, _outs = entry  # _outs: the device outputs, alive until fetched
-        if wait is None:
-            for i in idxs:
-                finish(i, [])
-            return
-        got = wait()
+        """Write a slab's CBR rows and tails into their files' containers
+        (on their writers' threads, while this one enqueues the next
+        slabs), or append its VBR rows or the VBR tails to their files'
+        chunks, and finish each file whose last chunk is in (after the
+        tails, or in a group of empty files, every file), so that a file is
+        written while the card still searches the slabs after it."""
+        (idxs, fr, bodies), span, wait, _outs = entry  # _outs: the device outputs, alive until fetched
+        got = wait() if wait is not None else None
         with _pt("encode_assemble"):
-            fr = [frames[i] for i in idxs]
-            if not settings.vbr:
-                rows, tail_sf, tail_codes, tail_eh, tail_ew = got
-                for j, (i, f) in enumerate(zip(idxs, fr)):
-                    body = [rows[j, : f // fpc].tobytes()] if f >= fpc else []
-                    if f % fpc:
-                        body.append(tail_chunk(f % fpc, tail_eh[j], tail_ew[j], tail_sf[j], tail_codes[j]))
-                    finish(i, body, full_size if f >= fpc else len(body[0]) if body else 0)
-                return
-            sf, codes, sizes, ehist, ewts = got[:5]
-            if len(got) > 5:
-                ht, wtt, sf_t, codes_t, sizes_t = got[5:]
-            t = 0  # the next tail's lanes
-            for j, (i, f) in enumerate(zip(idxs, fr)):
-                lanes = slice(j * c, (j + 1) * c)
-                k = f // fpc
-                body = []
-                if k:
-                    with _pt("encode_pack"):
-                        rect = serialize_full_chunks(
-                            sf[:k, :, lanes], codes[:k, :, lanes], sizes[:k, :, lanes],
-                            ehist[:k, lanes], ewts[:k, lanes],
-                            scale_factor_bits=sfb, scale_factor_frames=sff, residual_size=residual_size,
-                        )
-                    body.extend(bytes(row) for row in rect)
-                if f % fpc:
+            if got is not None and span is None:  # the VBR tails, after the group's last slab
+                ht, wtt, sf_t, codes_t, sizes_t = got
+                for t, j in enumerate(j for j, f in enumerate(fr) if f % fpc):
                     tl = slice(t * c, (t + 1) * c)
-                    body.append(tail_chunk(
-                        f % fpc, ht[tl], wtt[tl], sf_t[:, tl], codes_t[:, tl], sizes_t[:, tl]
+                    bodies[j].append(tail_chunk(
+                        fr[j] % fpc, ht[tl], wtt[tl], sf_t[:, tl], codes_t[:, tl], sizes_t[:, tl]
                     ))
-                    t += 1
-                finish(i, body, len(body[0]) if body else 0)
+            elif got is not None and not settings.vbr:
+                c0, c1 = span
+                rows, tail_sf, tail_codes, tail_eh, tail_ew = got
+                for j, f in enumerate(fr):
+                    n = min(c1, f // fpc) - c0  # the file's full chunks in the slab
+                    if n > 0:
+                        bodies[j].place(rows[j, :n])
+                    if f % fpc and c0 <= f // fpc < c1:
+                        tail = tail_chunk(f % fpc, tail_eh[j], tail_ew[j], tail_sf[j], tail_codes[j])
+                        bodies[j].place(tail)
+            elif got is not None:
+                c0, c1 = span
+                sf, codes, sizes, ehist, ewts = got
+                for j, f in enumerate(fr):
+                    n = min(c1, f // fpc) - c0
+                    if n > 0:
+                        lanes = slice(j * c, (j + 1) * c)
+                        with _pt("encode_pack"):
+                            bodies[j].append(serialize_full_chunks(
+                                sf[:n, :, lanes], codes[:n, :, lanes], sizes[:n, :, lanes],
+                                ehist[:n, lanes], ewts[:n, lanes],
+                                scale_factor_bits=sfb, scale_factor_frames=sff, residual_size=residual_size,
+                            ))
+            for j, (i, f) in enumerate(zip(idxs, fr)):
+                # every chunk in; a VBR tail comes with the tails, last
+                done = span is None or (-(-f // fpc) <= span[1] and not (settings.vbr and f % fpc))
+                if bodies[j] is not None and done:
+                    finish(i, bodies[j])
+                    bodies[j] = None
 
     if dev is None:
         launched = encode_corpus_blocks_sharded(mesh, frames, c, fpc, launch)
         depth = pipeline_depth * mesh.size
     else:
         xfer = _Transfers(dev)
-        launched = (launch(idxs, xfer) for idxs in _lane_groups(frames, c, fpc))
+        launched = (step() for idxs in _lane_groups(frames, c, fpc) for step in launch(idxs, xfer))
         depth = pipeline_depth
     staged: deque = deque()
-    for entry in launched:
-        staged.append(entry)
-        if len(staged) > depth:
+    try:
+        for entry in launched:
+            staged.append(entry)
+            if len(staged) > depth:
+                assemble(staged.popleft())
+        while staged:
             assemble(staged.popleft())
-    while staged:
-        assemble(staged.popleft())
-    return results
+        return [r.done() if isinstance(r, _Container) else r for r in results]
+    finally:
+        for w in writers:
+            w.shutdown(cancel_futures=True)
 
 
 def _encode_tails_vbr_batched(xt, nv_frames, hist, wts, prev, tail_frames, *, channels, sfb, sff, target):

@@ -11,6 +11,7 @@ the chunk layout is ``src/codec/chunk.rs:215-278``.
 from __future__ import annotations
 
 import math
+from functools import lru_cache
 
 import torch
 
@@ -65,6 +66,19 @@ def cbr_chunk_size(
     return 4 + 16 * channels + sf_bytes + res_bytes
 
 
+@lru_cache(maxsize=None)
+def _cbr_head(scale_factor_bits: int, scale_factor_frames: int, residual_size: int, device) -> torch.Tensor:
+    """A CBR chunk's 4 header bytes on ``device``, made once: a tensor
+    built from a Python list on a card is a pageable host-to-device copy,
+    which first waits for all the stream's queued work, so the host could
+    not enqueue the next slab while the card searches this one."""
+    return torch.tensor(
+        [CHUNK_TYPE_CBR, ((scale_factor_bits << 4) | residual_size) & 0xFF, scale_factor_frames, 0x5A],
+        dtype=torch.uint8,
+        device=device,
+    )
+
+
 def serialize_chunks_cbr_device(
     sf: torch.Tensor,  # uint8[R, W, C]
     codes: torch.Tensor,  # uint8[R, F, C]
@@ -79,16 +93,7 @@ def serialize_chunks_cbr_device(
     packed residuals."""
     r, w, c = sf.shape
     f = codes.shape[1]
-    head = torch.tensor(
-        [
-            CHUNK_TYPE_CBR,
-            ((scale_factor_bits << 4) | residual_size) & 0xFF,
-            scale_factor_frames,
-            0x5A,
-        ],
-        dtype=torch.uint8,
-        device=sf.device,
-    ).expand(r, 4)
+    head = _cbr_head(scale_factor_bits, scale_factor_frames, residual_size, sf.device).expand(r, 4)
     parts = [
         head,
         lms_section_device(ehist, ewts),

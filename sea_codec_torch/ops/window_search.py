@@ -14,8 +14,9 @@ the arithmetic form; the weights penalty is skipped behind an exact guard;
 and the sample loop is unrolled for sff == 20 (see the source note there).
 On a CPU tensor it runs the plain PyTorch version, ``window_search_plain``,
 which is ``ops.device_encode.encode_windows_fn`` plus the per-chunk entry
-state snapshots. ``launches`` counts kernel launches, and
-``ranks_only_launches`` those of them in the ranks-only form.
+state snapshots. ``launches`` counts kernel launches,
+``ranks_only_launches`` those of them in the ranks-only form, and
+``lanes`` the lanes (blocks) of every launch, summed.
 
 The residual size ``rs`` is an int (CBR, and VBR pass 1 at ``base+1``) or
 a tensor uint8/int32[W, C] of per-(window, channel) sizes (VBR pass 2),
@@ -50,6 +51,7 @@ from .device_encode import encode_windows_fn
 
 launches = 0
 ranks_only_launches = 0
+lanes = 0
 
 
 def window_search_plain(
@@ -127,7 +129,7 @@ def window_search(
     frames; ``hist0``/``wts0`` int32[C, 4] and ``prev0`` int32[C] are the
     entry state; ``rs`` and ``rs_range`` are described in the module
     docstring. Returns the tuple described there."""
-    global launches, ranks_only_launches
+    global launches, ranks_only_launches, lanes
     device = samples.device
     c = samples.shape[1]
     s = 1 << sfb
@@ -201,6 +203,7 @@ def window_search(
     cuda_build.check(rc, "sea_window_search")
     launches += 1
     ranks_only_launches += int(ranks_only)
+    lanes += c
     return sf, codes, ranks, ehist, ewts, hist, wts, prev
 
 

@@ -269,28 +269,30 @@ def encode_corpus_blocks_sharded(mesh: Mesh, frames: list[int], channels: int, f
     """The corpus encode's lane groups over ``mesh``: what
     ``batch.encode_corpus(mesh=...)`` runs. Files are dealt to the entries
     (``deal_files``), each entry's files form lane groups as on one device
-    (``batch._lane_groups``: longest first, bounded by device memory), and
-    ``launch(idxs, transfers)`` (``encode_corpus``'s: it stages the group,
-    uploads it and runs ``ops.encode_file.corpus_cbr_packed`` or
-    ``corpus_vbr_nv`` and the batched VBR tails) is called for each group
-    on its entry's device and stream, with that entry's ``batch._Transfers``.
-    One host thread enqueues the entries in turn (their first groups, then
-    their second ones, ...); yields what ``launch`` returns, in that order.
+    (``batch._lane_groups``: longest first, bounded by a slab of chunks),
+    and ``launch(idxs, transfers)`` (``encode_corpus``'s) gives each
+    group's steps with that entry's ``batch._Transfers``: each step stages,
+    uploads and searches one slab of the group
+    (``ops.encode_file.corpus_cbr_packed`` or ``corpus_vbr_nv``) from the
+    carry of the slab before, or encodes the VBR tails. Each step runs on
+    its entry's device and stream. One host thread enqueues the entries in
+    turn (their first steps, then their second ones, ...); yields what the
+    steps return, in that order.
 
     The JAX package's version takes 128-lane blocks padded to a whole
-    number of shards, for one SPMD program; here each group is its own
+    number of shards, for one SPMD program; here each slab is its own
     launch, so neither the blocks nor the padding are carried over."""
     from ..batch import _lane_groups, _Transfers
 
     sh = shards(mesh)
-    plan = []
-    for idxs in deal_files(frames, len(sh)):
-        groups = _lane_groups([frames[i] for i in idxs], channels, frames_per_chunk)
-        plan.append([[idxs[j] for j in g] for g in groups])
     xfers = [_Transfers(s.device) for s in sh]
+    plan = []
+    for xfer, idxs in zip(xfers, deal_files(frames, len(sh))):
+        groups = _lane_groups([frames[i] for i in idxs], channels, frames_per_chunk)
+        plan.append([step for g in groups for step in launch([idxs[j] for j in g], xfer)])
     for r in range(max((len(p) for p in plan), default=0)):
-        for shard, xfer, groups in zip(sh, xfers, plan):
-            if r < len(groups):
+        for shard, steps in zip(sh, plan):
+            if r < len(steps):
                 with shard.on():
-                    out = launch(groups[r], xfer)
+                    out = steps[r]()
                 yield out

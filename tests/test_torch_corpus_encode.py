@@ -8,12 +8,15 @@ parameter validation. Integer codec: every comparison is exact."""
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from sea_codec_torch import EncoderSettings, batch, convert
+from sea_codec_torch.container import CHUNK_TYPE_CBR
 from sea_codec_torch.ops import encode_file, serialize_device, tables
 from sea_codec_torch.ops import window_search as ws
 from sea_codec_torch.utils.errors import SeaInvalidParameters
@@ -93,8 +96,9 @@ def test_encode_corpus_wide_and_sfb8_ride_the_lanes(channels, sfb, vbr, search_c
 
 
 def test_encode_corpus_several_groups_in_flight(monkeypatch, search_calls):
-    """A device-memory bound small enough for one file a group: one launch a
-    group, longest files first, the same bytes at every pipeline depth."""
+    """A device-memory bound small enough for one file a group at a slab
+    of one chunk: longest files first, one launch a slab (the CBR scan's
+    tail chunk in the last), the same bytes at every pipeline depth."""
     st = EncoderSettings(frames_per_chunk=100)
     lens = [250, 730, 0, 99, 400]
     files = _corpus(2, lens, 3)
@@ -102,10 +106,109 @@ def test_encode_corpus_several_groups_in_flight(monkeypatch, search_calls):
     assert batch._lane_groups(lens, 2, 100) == [[1, 4, 0, 3, 2]]
     monkeypatch.setattr(batch, "_GROUP_DEVICE_BYTES", 2 * 100 * batch._LANE_FRAME_BYTES)
     assert batch._lane_groups(lens, 2, 100) == [[1], [4], [0], [3], [2]]
+    assert [len(batch._slabs([lens[i]], 2, 100, False)) for i in (1, 4, 0, 3, 2)] == [8, 4, 3, 1, 0]
     for depth in (0, 1, 4):
         del search_calls[:]
         assert batch.encode_corpus(files, TEST_SAMPLE_RATE, 2, st, pipeline_depth=depth, device="cpu") == want
-        assert len(search_calls) == 4  # the empty file launches nothing
+        assert len(search_calls) == 8 + 4 + 3 + 1  # the empty file launches nothing
+
+
+@pytest.mark.parametrize("depth", [0, 1, 4])
+@pytest.mark.parametrize("slab", [1, 2])
+@pytest.mark.parametrize("vbr", [False, True])
+def test_encode_corpus_runs_a_group_in_slabs(monkeypatch, search_calls, vbr, slab, depth):
+    """A device-memory bound of ``slab`` chunks for the lanes of one group
+    (ragged tails, an exact multiple, a sub-chunk and an empty file): the
+    group runs through time slab by slab, carrying the LMS state and the
+    previous scale factor, byte-identical to per-file ``encode_sea`` at
+    every pipeline depth. CBR launches once a slab; VBR twice a chunk
+    index and twice for the tails, whatever the slabs."""
+    fpc = 100
+    st = EncoderSettings(frames_per_chunk=fpc, residual_bits=2.5 if vbr else 3.0, vbr=vbr)
+    lens = [530, 400, 250, 99, 0, 100]
+    files = _corpus(2, lens, 21 + vbr)
+    want = _per_file(files, 2, st)
+    lanes = 2 * len(lens)
+    monkeypatch.setattr(batch, "_GROUP_DEVICE_BYTES", slab * lanes * fpc * batch._LANE_FRAME_BYTES)
+    assert batch._lane_groups(lens, 2, fpc) == [[0, 1, 2, 5, 3, 4]]
+    assert batch._slab_chunks(lanes, fpc) == slab
+    assert batch._slabs(lens, 2, fpc, full_only=vbr)[-1][1] == (5 if vbr else 6)
+    del search_calls[:]
+    out = batch.encode_corpus(files, TEST_SAMPLE_RATE, 2, st, pipeline_depth=depth, device="cpu")
+    assert out == want
+    assert len(search_calls) == (2 * 5 + 2 if vbr else -(-6 // slab))
+
+
+@pytest.mark.parametrize("piece", [2, 64, 1 << 20])
+def test_staging_copy_in_pieces(monkeypatch, piece):
+    """``_Transfers.stage`` concatenates what it is given, in one copy or
+    in pieces over host threads (``_STAGE_PIECE_BYTES`` shrunk so that
+    small arrays take the threaded form), and ``encode_corpus``'s bytes do
+    not change with it."""
+    monkeypatch.setattr(batch, "_STAGE_PIECE_BYTES", piece)
+    rng = np.random.default_rng(piece)
+    arrays = [rng.integers(-(1 << 15), 1 << 15, n, dtype=np.int16) for n in (0, 1, 37, 1000, 4099)]
+    got = batch._Transfers(torch.device("cpu")).stage(arrays, torch.int16)
+    assert got.dtype == torch.int16
+    np.testing.assert_array_equal(got.numpy(), np.concatenate(arrays))
+    st = EncoderSettings(frames_per_chunk=100)
+    files = _corpus(2, [250, 730, 0, 99], 5)
+    assert batch.encode_corpus(files, TEST_SAMPLE_RATE, 2, st, device="cpu") == _per_file(files, 2, st)
+
+
+@pytest.mark.parametrize("piece,writers", [(2, 1), (1 << 20, 3)])
+def test_cbr_containers_written_in_place(monkeypatch, piece, writers):
+    """A CBR file's container is a ``bytes`` made at the length its frames
+    fix and written slab by slab on ``writers`` host threads (slabs of one
+    chunk here, the staging threaded or not): every result is ``bytes`` and
+    equals per-file ``encode_sea``; a container waits for its writes and is
+    not handed out short."""
+    monkeypatch.setattr(batch, "_STAGE_PIECE_BYTES", piece)
+    monkeypatch.setattr(batch, "_WRITE_THREADS", writers)
+    monkeypatch.setattr(batch, "_GROUP_DEVICE_BYTES", 8 * 100 * batch._LANE_FRAME_BYTES)
+    st = EncoderSettings(frames_per_chunk=100)
+    files = _corpus(2, [250, 730, 0, 99], 9)
+    out = batch.encode_corpus(files, TEST_SAMPLE_RATE, 2, st, device="cpu")
+    assert all(type(b) is bytes for b in out)
+    assert out == _per_file(files, 2, st)
+    with ThreadPoolExecutor(1) as writer:
+        box = batch._Container(b"head", 5000, writer)
+        box.place(b"abc")
+        with pytest.raises(AssertionError, match="7 of 5000"):
+            box.done()
+        rows = np.arange(4993, dtype=np.int64).astype(np.uint8).reshape(1, -1)
+        box.place(rows)
+        assert box.done() == b"headabc" + rows.tobytes()
+
+
+def test_cbr_chunk_head_made_once():
+    """The device serializer's CBR chunk header is one cached tensor a
+    (settings, device): built from a list at every call it would be a
+    pageable copy that waits for the card's queued work."""
+    cpu = torch.device("cpu")
+    head = serialize_device._cbr_head(4, 20, 3, cpu)
+    assert head is serialize_device._cbr_head(4, 20, 3, cpu)
+    assert head.dtype == torch.uint8 and head.tolist() == [CHUNK_TYPE_CBR, (4 << 4) | 3, 20, 0x5A]
+
+
+def test_lane_groups_bound_a_slab_not_a_file():
+    """The bound holds whatever a file's length: the benchmark's 64-channel
+    shape (4 files of up to 5,625 chunks of 2,400 frames) is one group of
+    256 lanes in slabs of 436 chunks, and one 255-channel file of 14.4 M
+    frames is one group whose slab stays within the budget too."""
+    fpc = 2400
+    lens = [3375 * fpc, 4125 * fpc, 4875 * fpc, 5625 * fpc]
+    assert batch._lane_groups(lens, 64, fpc) == [[3, 2, 1, 0]]
+    k = batch._slab_chunks(256, fpc)
+    assert k == 436 and 256 * k * fpc * batch._LANE_FRAME_BYTES <= batch._GROUP_DEVICE_BYTES
+    slabs = batch._slabs(lens, 64, fpc, full_only=False)
+    assert len(slabs) == 13 and slabs[0] == (0, 436) and slabs[-1] == (12 * 436, 5625)
+    assert all(c1 - c0 <= k for c0, c1 in slabs)
+    for fpc, frames in ((600, 14_400_000), (5120, 14_400_000)):
+        assert batch._lane_groups([frames], 255, fpc) == [[0]]
+        k = batch._slab_chunks(255, fpc)
+        assert 255 * k * fpc * batch._LANE_FRAME_BYTES <= batch._GROUP_DEVICE_BYTES
+        assert len(batch._slabs([frames], 255, fpc, full_only=True)) == -(-(frames // fpc) // k)
 
 
 @pytest.mark.parametrize("mesh_entries", [None, 4])
@@ -326,9 +429,9 @@ def test_stage_times_recorded_and_bytes_unchanged():
     for key in ("encode_stage", "encode_put", "encode_fetch", "encode_assemble", "decode_parse", "decode_tails",
                 "decode_stage", "decode_put", "decode_fetch", "decode_assemble"):
         assert times[key] > 0, key
-    # the samples, each lane's frames, each file's tail index, the tails'
-    # lanes and frames
-    assert times["encode_put_bytes"] == (250 + 99) * 2 * 2 + 6 * 4 + 3 * 8 + 4 * 8 + 2 * 8
+    # one slab: the samples, each lane's frames in it, each file's tail
+    # index in it
+    assert times["encode_put_bytes"] == (250 + 99) * 2 * 2 + 6 * 4 + 3 * 8
     assert times["decode_fetch_bytes"] == 4 * 100 * 2 * 2
     assert "encode_put_bytes" in times.report() and "total" in times.report()
 

@@ -138,17 +138,35 @@ def test_deal_files_longest_first_to_the_least_loaded():
 @pytest.mark.parametrize("vbr", [False, True])
 def test_encode_corpus_mesh_matches_unsharded_and_jax(vbr, monkeypatch):
     """Ragged, exact-multiple, sub-chunk and empty files over a 3-entry
-    mesh, at most two files a lane group: bytes equal to ``mesh=None`` and
-    to the JAX package's ``encode_corpus``."""
+    mesh, at most two files a lane group, in slabs of one chunk (two
+    files) or two (one file): bytes equal to ``mesh=None`` and to the JAX
+    package's ``encode_corpus``."""
     c = 2
     lens = [260, 250, 100, 73, 0, 199, 400]
     files = [varied_signal(c, n, seed=40 + i) for i, n in enumerate(lens)]
     kw = dict(frames_per_chunk=100, scale_factor_frames=10, residual_bits=2.5 if vbr else 3.0, vbr=vbr)
     st = EncoderSettings(**kw)
-    monkeypatch.setattr(batch, "_GROUP_DEVICE_BYTES", 2 * c * 400 * batch._LANE_FRAME_BYTES)
+    monkeypatch.setattr(batch, "_GROUP_DEVICE_BYTES", 2 * c * 100 * batch._LANE_FRAME_BYTES)
     got = batch.encode_corpus(files, TEST_SAMPLE_RATE, c, st, mesh=_mesh(3))
     assert got == batch.encode_corpus(files, TEST_SAMPLE_RATE, c, st, device="cpu")
     assert got == j_batch.encode_corpus(files, TEST_SAMPLE_RATE, c, JaxSettings(**kw))
+
+
+@pytest.mark.parametrize("depth", [0, 1, 4])
+@pytest.mark.parametrize("slab", [1, 2])
+@pytest.mark.parametrize("vbr", [False, True])
+def test_encode_corpus_mesh_runs_groups_in_slabs(vbr, slab, depth, monkeypatch):
+    """Over a 3-entry mesh with a device-memory bound of ``slab`` chunks
+    for the lanes of three files, each entry runs its group slab by slab
+    with the carry, the entries' slabs in turn: every file, ragged, exact,
+    sub-chunk and empty, byte-identical to per-file ``encode_sea``."""
+    c, fpc = 2, 50
+    lens = [333, 260, 190, 50, 41, 0, 120, 275]
+    files = [varied_signal(c, n, seed=60 + i) for i, n in enumerate(lens)]
+    st = EncoderSettings(frames_per_chunk=fpc, scale_factor_frames=10, residual_bits=2.5 if vbr else 3.0, vbr=vbr)
+    monkeypatch.setattr(batch, "_GROUP_DEVICE_BYTES", slab * 3 * c * fpc * batch._LANE_FRAME_BYTES)
+    got = batch.encode_corpus(files, TEST_SAMPLE_RATE, c, st, pipeline_depth=depth, mesh=_mesh(3))
+    assert got == [sea_encode(f, TEST_SAMPLE_RATE, c, st, device="cpu") for f in files]
 
 
 def test_encode_corpus_mesh_runs_every_entry(monkeypatch):

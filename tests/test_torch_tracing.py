@@ -111,12 +111,45 @@ def test_encode_corpus_records_search_pack_and_launches(vbr, installed, counting
     assert type(n) is int and n == ws.launches - before == (2 * 4 + 2 if vbr else 1)
 
 
+@pytest.mark.parametrize("vbr", [False, True])
+def test_encode_corpus_counts_the_lanes_of_each_launch(vbr, installed, monkeypatch):
+    """``encode_search_lanes_count`` is the lanes of every search launch of
+    the call, summed (CBR: one launch over 4 files x 2 channels; VBR: two a
+    chunk index over those 8 lanes, then two over the 3 tails' 6), so that
+    over ``encode_search_launches_count`` it reads the lanes a launch
+    covers. With ``PIPELINE_TIMES`` at None a call records nothing, and a
+    later call's count holds that call's lanes alone."""
+    plain = ws.window_search_plain
+    lanes = []
+
+    def counted(samples, *args, **kw):
+        ws.launches += 1
+        ws.lanes += samples.shape[1]
+        lanes.append(samples.shape[1])
+        return plain(samples, *args, **kw)
+
+    monkeypatch.setattr(ws, "window_search_plain", counted)
+    st = EncoderSettings(frames_per_chunk=100, residual_bits=2.5 if vbr else 3.0, vbr=vbr)
+    files = _files()
+    assert batch.PIPELINE_TIMES is None
+    want = batch.encode_corpus(files, TEST_SAMPLE_RATE, 2, st, device="cpu")
+    assert sum(lanes) > 0
+    del lanes[:]
+    got, times = installed(lambda: batch.encode_corpus(files, TEST_SAMPLE_RATE, 2, st, device="cpu"))
+    assert got == want
+    assert lanes == ([8] * 8 + [6] * 2 if vbr else [8])
+    n = times["encode_search_lanes_count"]
+    assert type(n) is int and n == sum(lanes)
+    assert times["encode_search_launches_count"] == len(lanes)
+
+
 def test_launch_count_recorded_when_nothing_launches(installed):
     """On the CPU the kernel's launch counter does not move: the count is
     still recorded, as 0."""
     st = EncoderSettings(frames_per_chunk=100, residual_bits=2.5, vbr=True)
     _out, times = installed(lambda: batch.encode_corpus(_files(), TEST_SAMPLE_RATE, 2, st, device="cpu"))
     assert times["encode_search_launches_count"] == 0
+    assert times["encode_search_lanes_count"] == 0
 
 
 def test_count_does_not_go_through_add(installed, counting_search):
