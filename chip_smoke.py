@@ -4,7 +4,7 @@
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Phases, in order; any failure exits non-zero:
 
-1. Build the six CUDA kernels from ``sea_codec_torch/csrc`` (one nvcc
+1. Build the seven CUDA kernels from ``sea_codec_torch/csrc`` (one nvcc
    each, in parallel) and, beside them, the native C++ host codec
    (``sea_codec_torch/native/sea_native.cpp``, the host compiler; the run
    fails without one), and print the card's name and power limit.
@@ -33,7 +33,11 @@ Phases, in order; any failure exits non-zero:
    table build for every (sfb, rs, sf, code);
    and CBR and VBR batches whose rows exceed a block's shared memory, which
    the fused kernels stream tile by tile and the two-kernel path decodes as
-   well.
+   well. The VBR row kernel on random search outputs: the benchmark's VBR
+   slab (16 stereo files x 1,638 chunks of 5,120 frames), 64 and 255
+   channels at the largest frames a chunk whose VBR chunk fits the u16
+   chunk_size, and edge geometries; on the slab also each file's first
+   rows against ``batch.serialize_full_chunks`` on the host.
 3. The committed CBR and VBR fixtures: ``sea_encode`` gives their bytes and
    ``sea_decode`` their PCM, through the batch engine and through the
    sessions (``engine="session"``); ``SeaDecoder.seek`` and ``decode_range``
@@ -54,8 +58,11 @@ Phases, in order; any failure exits non-zero:
    ``batch.PIPELINE_TIMES`` set, for its stage report. (c) ``encode_corpus``,
    both modes, on bench.py's corpus shape (256 stereo files of 7-8 chunks
    CBR, 64 VBR) and on (b)'s files by channel count, bytes equal to
-   per-file ``sea_encode``, the search launched lane-packed, with its
-   stage report and the summed per-file walls; all-empty corpora (1 and 3
+   per-file ``sea_encode``, the search launched lane-packed, the VBR row
+   kernel once a slab (``encode_serialize_launches_count`` too) and no full
+   chunk packed on the host, with its stage report and the summed per-file
+   walls; the corpus VBR chunk loop and its row kernel with no host sync
+   (``set_sync_debug_mode("error")``); all-empty corpora (1 and 3
    files, both modes, unsharded and over [cuda:0] x 2) equal to per-file
    ``sea_encode``'s 22-byte headers. (d) The device transcodes
    (``parse_device``) of (a)'s full-chunk rows, PCM equal to
@@ -68,7 +75,9 @@ Phases, in order; any failure exits non-zero:
    file's scale factors, codes and chunk states, and to its plain version
    on the first two chunks and on the masked tail; its VBR forms equal to
    the VBR file (the host pack of their outputs giving its bytes), to the
-   plain version on the first two chunks and on the tail. Times of each
+   plain version on the first two chunks and on the tail, and the row
+   kernel's rows of its outputs equal to the file's. The VBR row kernel at
+   the benchmark's VBR slab, timed. Times of each
    kernel and its plain version, beside two least times for the same work:
    the roofline (bytes or operations) and the serial chain at the highest
    SM clock; the VBR host pack's time on its own line. The two-kernel
@@ -117,14 +126,13 @@ Phases, in order; any failure exits non-zero:
    7 and before phase 5, so that its decode launches count in the kernels
    line): (a) the compiler, its version, the host's CPU count and the
    library's builds; its tables equal to ``ops.tables`` for sfb 1..8 x rb
-   1..8. (b) Phase 4's VBR paths packed through ``native_pack_rows`` (and
-   the CBR paths packed nothing on the host); the VBR file's [1550, 5120 x
+   1..8. (b) No path of phase 4 packed a full chunk on the host (the VBR
+   row kernel packs them on the card); the VBR file's [1550, 5120 x
    2] residuals packed by numpy ``bitpack`` (the plain version) and by
-   ``native_pack_rows``, and the file's rows serialized with each packer,
-   in turns, three times, bytes equal; the VBR ``sea_encode`` on the card
-   equal to ``native_encode`` on the host. (c) ``encode_corpus`` VBR on
-   phase 4 (c)'s corpora (a) and (b), native pack, numpy pack, native pack,
-   with the stage reports. (d) ``seaconv --backend native`` and
+   ``native_pack_rows``, and the file's rows serialized with each packer
+   (``batch.serialize_full_chunks``, the host API), in turns, three times,
+   bytes equal; the VBR ``sea_encode`` on the card, with no host pack,
+   equal to ``native_encode`` on the host. (c) ``seaconv --backend native`` and
    ``--backend torch`` on the 3-minute signal as a ``.wav``, CBR and VBR:
    equal ``.sea`` bytes; the native file decoded by both backends, each
    ``.wav`` equal to ``sea_decode``'s PCM on the card; every wall beside
@@ -891,6 +899,149 @@ def dequant_kernels_exhaustive():
     log("[phase 2] CBR and VBR dequant kernels == tables.dqt for every (sfb, rs, sf, code)")
 
 
+def vbr_rows_inputs(gen, nf, nc, c, st):
+    """Random VBR search outputs, lane-packed on the card, of ``nc`` full
+    chunks of ``nf`` files x ``c`` channels at settings ``st``: each (file,
+    chunk) draws its sizes as a permutation of a full chunk's (base-1..base+2
+    in ``interpolate_distribution``'s counts, as the search assigns them),
+    its codes below 2^size and its scale factors below 2^sfb. Returns the
+    wrapper's arguments (sf, codes, sizes, ehist, ewts, n_files, sfb, sff,
+    residual_size, chunk_size)."""
+    import torch
+
+    from sea_codec_torch.models.vbr import (
+        chunk_residual_size, interpolate_distribution, normalized_vbr_bitrate, vbr_base,
+    )
+    from sea_codec_torch.ops.serialize_device import vbr_chunk_size, vbr_rank_sizes
+
+    fpc, sff, sfb = st.frames_per_chunk, st.scale_factor_frames, st.scale_factor_bits
+    w, b = fpc // sff, nf * c
+    target = normalized_vbr_bitrate(st.residual_bits, fpc, sfb, sff)
+    base = vbr_base(target)
+    m1, _t, p1, p2 = interpolate_distribution(w * c, target)
+    pool = torch.from_numpy(vbr_rank_sizes(w * c, base, (m1, p1, p2)).astype(np.uint8)).cuda()
+    perm = torch.argsort(torch.rand((nc * nf, w * c), device="cuda", generator=gen), dim=1)
+    sizes = pool[perm].reshape(nc, nf, w, c).permute(0, 2, 1, 3).reshape(nc, w, b).contiguous()
+    codes = torch.randint(0, 256, (nc, fpc, b), dtype=torch.int32, device="cuda", generator=gen)
+    codes = (codes & ((1 << sizes.repeat_interleave(sff, dim=1).int()) - 1)).to(torch.uint8)
+    sf = torch.randint(0, 1 << sfb, (nc, w, b), dtype=torch.int32, device="cuda", generator=gen).to(torch.uint8)
+    ehist, ewts = (torch.randint(-(1 << 31), (1 << 31) - 1, (nc, b, 4), dtype=torch.int32, device="cuda",
+                                 generator=gen) for _ in range(2))
+    rs = chunk_residual_size(st.residual_bits, target)
+    return sf, codes, sizes, ehist, ewts, nf, sfb, sff, rs, vbr_chunk_size(c, fpc, sfb, sff, base, (m1, p1, p2))
+
+
+def largest_vbr_fpc(c, st):
+    """The largest frames_per_chunk, a multiple of sff, whose full VBR chunk
+    at ``c`` channels fits the header's u16 chunk_size."""
+    import dataclasses
+
+    from sea_codec_torch.models.vbr import interpolate_distribution, normalized_vbr_bitrate, vbr_base
+    from sea_codec_torch.ops.serialize_device import vbr_chunk_size
+
+    sff, sfb = st.scale_factor_frames, st.scale_factor_bits
+
+    def size(fpc):
+        target = normalized_vbr_bitrate(st.residual_bits, fpc, sfb, sff)
+        m1, _t, p1, p2 = interpolate_distribution(fpc // sff * c, target)
+        return vbr_chunk_size(c, fpc, sfb, sff, vbr_base(target), (m1, p1, p2))
+
+    fpc = sff
+    while size(fpc + sff) <= 0xFFFF:
+        fpc += sff
+    return dataclasses.replace(st, frames_per_chunk=fpc)
+
+
+# (files, chunks, channels, settings) of the VBR row kernel's checks: the
+# benchmark's VBR slab (16 stereo files x 1,638 chunks of 5,120 frames at
+# seaconv --vbr -b 3), 64 and 255 channels at the largest fpc whose chunk
+# fits the u16 chunk_size (their residuals in 3 and 2 tiles of windows),
+# and edge geometries (sff 1 in 2 tiles, sff 7, sfb 1 and 8, 1 to 17
+# channels, rows of odd lengths, one chunk)
+def vbr_rows_shapes():
+    from sea_codec_torch import EncoderSettings
+
+    st3 = EncoderSettings(vbr=True, residual_bits=3.0)
+    return (
+        (16, 1638, 2, st3),
+        (4, 100, 64, largest_vbr_fpc(64, st3)),
+        (1, 200, 255, largest_vbr_fpc(255, st3)),
+        (3, 5, 1, EncoderSettings(vbr=True, residual_bits=1.0, scale_factor_bits=1, scale_factor_frames=1,
+                                  frames_per_chunk=6000)),
+        (5, 3, 3, EncoderSettings(vbr=True, residual_bits=7.5, scale_factor_bits=8, scale_factor_frames=7,
+                                  frames_per_chunk=7 * 37)),
+        (2, 1, 17, EncoderSettings(vbr=True, residual_bits=2.5, scale_factor_bits=5, frames_per_chunk=300)),
+        (7, 9, 2, vbr_settings()),
+    )
+
+
+def serialize_vbr_sweep():
+    """The VBR row kernel against its plain version on the card over
+    ``vbr_rows_shapes``, bit for bit, and on the benchmark's slab each
+    file's first rows against ``batch.serialize_full_chunks`` of its lanes
+    on the host. Returns the worst difference."""
+    import torch
+
+    from sea_codec_torch.batch import serialize_full_chunks
+    from sea_codec_torch.ops.serialize_device import corpus_rows_vbr_device, corpus_rows_vbr_plain
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    worst, seen = 0, []
+    for nf, nc, c, st in vbr_rows_shapes():
+        args = vbr_rows_inputs(gen, nf, nc, c, st)
+        got = corpus_rows_vbr_device(*args)
+        want = corpus_rows_vbr_plain(*args)
+        torch.cuda.synchronize()
+        worst = max(worst, worst_of([got], [want], f"VBR rows {nf} files x {nc} chunks x {c} ch, {st}"))
+        seen.append(f"{nf}x{nc}x{c} ch fpc {st.frames_per_chunk} sff {st.scale_factor_frames} "
+                    f"sfb {st.scale_factor_bits}: {args[-1]} B")
+        if (nf, nc, c) == (16, 1638, 2):
+            host = [t[:3].cpu().numpy() for t in args[:5]]
+            for j in (0, 7, 15):
+                lanes = slice(j * c, (j + 1) * c)
+                rows = serialize_full_chunks(*(a[:, :, lanes] for a in host[:3]), *(a[:, lanes] for a in host[3:]),
+                                             *args[6:9])
+                check(np.array_equal(rows, got[j, :3].cpu().numpy()), f"VBR rows of file {j} != serialize_full_chunks")
+        del args, got, want
+    log(f"[phase 2] VBR row kernel == plain, rows of {'; '.join(seen)}; the benchmark slab's rows == "
+        "serialize_full_chunks of their lanes")
+    return worst
+
+
+def serialize_vbr_at_cell_shape(result):
+    """The VBR row kernel on the benchmark's VBR slab (16 stereo files x
+    1,638 chunks of 5,120 frames), timed beside its plain version: bytes are
+    the search outputs read once and the rows written once."""
+    import torch
+
+    from sea_codec_torch.ops.serialize_device import corpus_rows_vbr_device, corpus_rows_vbr_plain
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1638)
+    nf, nc, c, st = vbr_rows_shapes()[0]
+    args = vbr_rows_inputs(gen, nf, nc, c, st)
+    ms, got = cuda_ms(lambda: corpus_rows_vbr_device(*args), reps=20)
+    plain_ms, want = cuda_ms(lambda: corpus_rows_vbr_plain(*args), reps=1)
+    err = worst_of([got], [want], "VBR rows at the benchmark slab")
+    n_codes = args[1].numel()
+    log(f"[phase 5] VBR row kernel == plain at {nf} files x {nc} chunks x {st.frames_per_chunk} frames x {c} ch "
+        f"({got.numel()} bytes of rows of {args[-1]}): kernel {ms:.4f} ms, plain {plain_ms:.1f} ms")
+    return err, {
+        "name": "serialize_vbr", "route": "cuda",
+        "source": "sea_codec_torch/csrc/serialize_vbr.cu",
+        "replaces": "none: the JAX package packs VBR rows on the host",
+        "launches": path_launches(result, "serialize_vbr")[0],
+        "launches_by_path": path_launches(result, "serialize_vbr")[1],
+        "ms": ms, "plain_ms": plain_ms, "shape": [nf, nc, st.frames_per_chunk, c],
+        "bytes": sum(t.numel() * t.element_size() for t in args[:5]) + got.numel(),
+        # the function's own work a code: mask it, split its bit offset
+        # into word and shift, shift it into place, OR its <= 2 words
+        "ops": (6 * n_codes, 0),
+        "chain_cycles": 0,
+    }
+
+
 def oversize_rows(rng):
     """Rows longer than a block's shared memory (255 channels x 1,000 frames
     x 8 bits = 255,000 bytes), CBR and VBR: the fused kernels stream a row
@@ -1021,7 +1172,9 @@ def music_signal(frames, seed):
 
 
 def launch_counts():
-    from sea_codec_torch.ops import dequant, fused_decode, fused_decode_vbr, lms_decode, window_search
+    from sea_codec_torch.ops import (
+        dequant, fused_decode, fused_decode_vbr, lms_decode, serialize_device, window_search,
+    )
 
     return {
         "fused_decode_cbr": fused_decode.launches,
@@ -1031,15 +1184,19 @@ def launch_counts():
         "lms_decode": lms_decode.launches,
         "dequant_cbr": dequant.cbr_launches,
         "dequant_vbr": dequant.vbr_launches,
+        "serialize_vbr": serialize_device.launches,
     }
 
 
 def reset_launch_counts():
-    from sea_codec_torch.ops import dequant, fused_decode, fused_decode_vbr, lms_decode, window_search
+    from sea_codec_torch.ops import (
+        dequant, fused_decode, fused_decode_vbr, lms_decode, serialize_device, window_search,
+    )
 
     fused_decode.launches = fused_decode_vbr.launches = 0
     window_search.launches = window_search.ranks_only_launches = 0
     lms_decode.launches = dequant.cbr_launches = dequant.vbr_launches = 0
+    serialize_device.launches = 0
 
 
 def path_launches(result, name):
@@ -1286,36 +1443,47 @@ def expected_corpus_launches(frames, c, st):
 
 
 def vbr_loop_never_waits():
-    """The corpus VBR loop over chunk index (``encode_file.corpus_vbr_nv``),
-    like the file's, never waits for the card: run on 4 stereo lanes of 3
-    chunks, one file a chunk short, under ``set_sync_debug_mode("error")``."""
+    """The corpus VBR step, the loop over chunk index
+    (``encode_file.corpus_vbr_nv``) and the row kernel after it
+    (``serialize_device.corpus_rows_vbr_device``), like the file's loop,
+    never waits for the card: run on 4 stereo files of 3 chunks, one file a
+    chunk short, under ``set_sync_debug_mode("error")``."""
     import torch
 
-    from sea_codec_torch.models.vbr import interpolate_distribution, normalized_vbr_bitrate, vbr_base
+    from sea_codec_torch.models.vbr import (
+        chunk_residual_size, interpolate_distribution, normalized_vbr_bitrate, vbr_base,
+    )
     from sea_codec_torch.ops import lms
     from sea_codec_torch.ops.encode_file import corpus_vbr_nv
+    from sea_codec_torch.ops.serialize_device import corpus_rows_vbr_device, vbr_chunk_size
 
     st = vbr_settings()
     fpc, sff, sfb, c, nf = st.frames_per_chunk, st.scale_factor_frames, st.scale_factor_bits, 2, 4
     target = normalized_vbr_bitrate(st.residual_bits, fpc, sfb, sff)
     m1, _t, p1, p2 = interpolate_distribution(fpc * c // sff, target)
+    size = vbr_chunk_size(c, fpc, sfb, sff, vbr_base(target), (m1, p1, p2))
+    rkw = dict(n_files=nf, scale_factor_bits=sfb, scale_factor_frames=sff,
+               residual_size=chunk_residual_size(st.residual_bits, target), chunk_size=size)
     x = torch.randint(-20000, 20000, (3, fpc, nf * c), dtype=torch.int16, device="cuda")
     frames = torch.tensor([3 * fpc] * 6 + [2 * fpc] * 2, dtype=torch.int32, device="cuda")
     init = (lms.initial_history(c, "cuda").repeat(nf, 1), lms.initial_weights(c, "cuda").repeat(nf, 1),
             torch.zeros(nf * c, dtype=torch.int32, device="cuda"))
     kw = dict(scale_factor_frames=sff, scale_factor_bits=sfb, base=vbr_base(target), dist=(m1, p1, p2), n_files=nf)
-    corpus_vbr_nv(x, frames, *init, **kw)  # warm: the tables go to the card once
+    corpus_rows_vbr_device(*corpus_vbr_nv(x, frames, *init, **kw)[:5], **rkw)  # warm: tables and library load once
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         out = corpus_vbr_nv(x, frames, *init, **kw)
+        rows = corpus_rows_vbr_device(*out[:5], **rkw)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+    check(rows.shape == (nf, 3, size), f"corpus VBR rows {tuple(rows.shape)}")
     # the short file's lanes carry their state through the masked chunk
     check(torch.equal(out[5][6:], out[3][2, 6:]) and torch.equal(out[6][6:], out[4][2, 6:]),
           "corpus VBR loop: a masked chunk moved a lane's carry")
-    log("[phase 4] the corpus VBR chunk loop ran without a host sync; a masked chunk left its lanes' carry")
+    log("[phase 4] the corpus VBR chunk loop and its row kernel ran without a host sync; a masked chunk left "
+        "its lanes' carry")
 
 
 def native_packs():
@@ -1325,7 +1493,18 @@ def native_packs():
     return binding.pack_calls
 
 
-def run_corpus(result, label, st, calls, per_file_s, phase=4):
+def expected_serialize_launches(frames, c, st):
+    """VBR row kernel launches of one ``encode_corpus`` call: one a slab of
+    a lane group; none for CBR."""
+    from sea_codec_torch.batch import _lane_groups, _slabs
+
+    if not st.vbr:
+        return 0
+    fpc = st.frames_per_chunk
+    return sum(len(_slabs([frames[i] for i in g], c, fpc, True)) for g in _lane_groups(frames, c, fpc))
+
+
+def run_corpus(result, label, st, calls, per_file_s):
     """``encode_corpus`` over ``calls`` ([(channels, files, expected
     bytes)]) with ``PIPELINE_TIMES`` set: bytes equal, the search launched
     lane-packed; launches and native packs recorded under ``label``."""
@@ -1337,7 +1516,7 @@ def run_corpus(result, label, st, calls, per_file_s, phase=4):
     reset_launch_counts()
     packs = native_packs()
     batch.PIPELINE_TIMES = StageTimes()
-    walls, want_launches = [], 0
+    walls, want_launches, want_rows = [], 0, 0
     try:
         for c, files, wants in calls:
             torch.cuda.synchronize()
@@ -1346,6 +1525,7 @@ def run_corpus(result, label, st, calls, per_file_s, phase=4):
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
             want_launches += expected_corpus_launches([f.shape[0] // c for f in files], c, st)
+            want_rows += expected_serialize_launches([f.shape[0] // c for f in files], c, st)
             for fi, (o, w) in enumerate(zip(outs, wants, strict=True)):
                 check(o == w, f"{label}: file {fi} ({c} ch) != per-file sea_encode")
         report = batch.PIPELINE_TIMES
@@ -1356,12 +1536,19 @@ def run_corpus(result, label, st, calls, per_file_s, phase=4):
     result["native_packs"][label] = native_packs() - packs
     check(counts["window_search"] == want_launches,
           f"{label}: {counts['window_search']} search launches, lane-packed needs {want_launches}")
+    # every full VBR chunk is packed on the card: one row kernel launch a slab, no host pack
+    rows_count = dict(report).get("encode_serialize_launches_count")
+    check(counts["serialize_vbr"] == want_rows and rows_count == (want_rows if st.vbr else None)
+          and result["native_packs"][label] == 0,
+          f"{label}: row kernel launches {counts['serialize_vbr']} (recorded {rows_count}), one a VBR slab "
+          f"needs {want_rows}; native packs {result['native_packs'][label]}, expected 0")
     samples = sum(f.size for _c, files, _w in calls for f in files)
     wall = sum(walls)
-    log(f"[phase {phase}] encode_corpus {label}: {sum(len(f) for _c, f, _w in calls)} files, "
+    log(f"[phase 4] encode_corpus {label}: {sum(len(f) for _c, f, _w in calls)} files, "
         f"{samples / 1e6:.3f} Msamples in {wall:.4f} s ({samples / 1e6 / wall:.3f} Msamples/s; "
         f"by call {[round(t, 4) for t in walls]}), bytes == per-file sea_encode, whose walls sum to "
-        f"{per_file_s:.4f} s; launches {counts} (lane-packed: {want_launches}); native packs "
+        f"{per_file_s:.4f} s; launches {counts} (lane-packed: {want_launches}; row kernel a VBR slab: "
+        f"{want_rows}); native packs "
         f"{result['native_packs'][label]}; card {result['card']}; stages:\n{report.report()}")
     result["main"][label] = {"encode_s": wall, "by_call_s": walls, "per_file_s": per_file_s,
                              "msamples": samples / 1e6, "stages": dict(report)}
@@ -1670,8 +1857,10 @@ def vbr_search_at_main_shape(pcm, enc, result, clock_mhz):
     two-pass file encode on the card reproduces the file's scale factors,
     sizes, codes and chunk states, and packed on the host its bytes; on the
     first two chunks it equals the plain version on the CPU, and so does
-    the tail chunk's encode from the carried state. Prints each pass's
-    kernel time on one chunk and the host pack's time."""
+    the tail chunk's encode from the carried state; the row kernel packs the
+    search's outputs on the card into the file's rows too. Prints each
+    pass's kernel time on one chunk, the host pack's time and the row
+    kernel's."""
     import torch
 
     from sea_codec_torch.batch import parse_full_chunks, serialize_full_chunks, split_chunks
@@ -1683,6 +1872,7 @@ def vbr_search_at_main_shape(pcm, enc, result, clock_mhz):
     from sea_codec_torch.ops import lms
     from sea_codec_torch.ops.device_decode import unpack_var
     from sea_codec_torch.ops.encode_file import encode_file_vbr
+    from sea_codec_torch.ops.serialize_device import corpus_rows_vbr_device
     from sea_codec_torch.ops.window_search import window_search
 
     header, rect, tail = split_chunks(enc)
@@ -1711,8 +1901,11 @@ def vbr_search_at_main_shape(pcm, enc, result, clock_mhz):
                                  chunk_residual_size(st.residual_bits, target))
     pack_s = time.perf_counter() - t0
     check(np.array_equal(rows, rect), "VBR host pack != main-path file")
+    rows_ms, rows_dev = cuda_ms(lambda: corpus_rows_vbr_device(
+        *out[:5], 1, sfb, sff, chunk_residual_size(st.residual_bits, target), rect.shape[1]), reps=10)
+    check(np.array_equal(rows_dev[0].cpu().numpy(), rect), "VBR row kernel != main-path file")
     log(f"[phase 5] VBR host pack (serialize_full_chunks, native packer) of {nc} chunks x {f * c} codes: "
-        f"{pack_s * 1e3:.1f} ms, == main-path file")
+        f"{pack_s * 1e3:.1f} ms, == main-path file; the row kernel on the card {rows_ms:.4f} ms, == main-path file")
 
     skw = dict(sfb=sfb, sff=sff, wpc=wpc)
     x0 = x[0]
@@ -2531,9 +2724,6 @@ def serving_path(result, here, enc, enc_vbr):
 # ---------------------------------------------------------------------------
 
 PACK_TURNS = 3
-# encode_corpus VBR walls with the numpy pack alone, on an NVIDIA H100 80GB
-# HBM3 at 700.00 W (this script's phase 4 (c) before the native pack)
-NUMPY_PACK_CORPUS_S = {"a": 0.3499, "b": 7.4027}
 
 
 def residual_pack_numpy(codes, widths):
@@ -2579,10 +2769,8 @@ def native_pack_at_main_shape(result, pcm, enc_vbr):
     from sea_codec_torch.native import binding
     from sea_codec_torch.ops.device_decode import unpack_var
 
-    check(all(result["native_packs"][k] > 0 for k in ("vbr", "corpus_encode_vbr_a", "corpus_encode_vbr_b")),
-          f"phase 4's VBR paths ran no native pack: {result['native_packs']}")
-    check(all(result["native_packs"][k] == 0 for k in ("cbr", "corpus_encode_cbr_a", "corpus_encode_cbr_b")),
-          f"a CBR path packed on the host: {result['native_packs']}")
+    check(all(n == 0 for n in result["native_packs"].values()),
+          f"a path on the card packed full chunks on the host (the row kernel packs them): {result['native_packs']}")
     header, rect, _tail = batch.split_chunks(enc_vbr)
     b = batch.parse_full_chunks(rect, header)
     nc, f, c = rect.shape[0], header.frames_per_chunk, header.channels
@@ -2631,7 +2819,7 @@ def native_pack_at_main_shape(result, pcm, enc_vbr):
     host = binding.native_encode(pcm, MAIN_RATE, MAIN_CHANNELS, vbr=True, residual_bits=st.residual_bits)
     host_s = time.perf_counter() - t0
     check(enc == enc_vbr and host == enc, "VBR sea_encode != native_encode (or != phase 4's file)")
-    check(packs == 3, f"the VBR sea_encode made {packs} native packs, expected 3")
+    check(packs == 0, f"the VBR sea_encode on the card made {packs} native packs, expected 0")
     log(f"[phase 8] VBR sea_encode of the {MAIN_FRAMES}-frame stereo signal on the card, native pack: "
         f"{wall:.4f} s (phase 4: {result['main']['vbr']['encode_s']:.4f} s); native_encode on the host "
         f"(one thread) {host_s:.4f} s; bytes equal; launches {result['launches']['native_vbr_encode']}; "
@@ -2639,35 +2827,8 @@ def native_pack_at_main_shape(result, pcm, enc_vbr):
     result["main"]["native_pack"].update(vbr_encode_s=wall, native_encode_vbr_s=host_s)
 
 
-def native_corpus_encode(result, bench, corpus):
-    """(c) ``encode_corpus`` VBR on corpora (a) and (b): the native pack, the
-    numpy pack (``native.available`` patched False), the native pack again."""
-    from sea_codec_torch import batch
-
-    st, files, wants = bench["vbr"]
-    available = batch.native.available
-    walls = {}
-    for which, calls, per_file_s in (("a", [(2, files, wants)], result["main"]["corpus_encode_vbr_a"]["per_file_s"]),
-                                     ("b", *corpus_calls(corpus, "vbr"))):
-        for turn, packer in enumerate(("native", "numpy", "native")):
-            label = f"native_corpus_encode_vbr_{which}_{packer}_{turn}"
-            if packer == "numpy":
-                batch.native.available = lambda: False
-            try:
-                walls.setdefault((which, packer), []).append(run_corpus(result, label, st, calls, per_file_s, phase=8))
-            finally:
-                batch.native.available = available
-            check((result["native_packs"][label] > 0) == (packer == "native"), f"{label}: wrong packer ran")
-    for which in ("a", "b"):
-        log(f"[phase 8] encode_corpus VBR ({which}), in turns: native pack "
-            f"{', '.join(f'{t:.4f}' for t in walls[(which, 'native')])} s, numpy pack "
-            f"{walls[(which, 'numpy')][0]:.4f} s (numpy pack in an earlier run: {NUMPY_PACK_CORPUS_S[which]} s); "
-            f"card {result['card']}")
-    result["main"]["native_corpus_encode_vbr"] = {f"{w}_{p}": v for (w, p), v in walls.items()}
-
-
 def native_cli(result, pcm, enc, enc_vbr):
-    """(d) ``seaconv --backend native`` and ``--backend torch`` on the main
+    """(c) ``seaconv --backend native`` and ``--backend torch`` on the main
     path's signal as a ``.wav``, CBR (``-b 3``) and VBR (``-v -b 2.5``):
     the same ``.sea`` bytes; the native file decoded by both backends, each
     ``.wav`` written back equal to ``sea_decode``'s PCM on the card."""
@@ -2708,12 +2869,11 @@ def native_cli(result, pcm, enc, enc_vbr):
             result["main"][label] = s
 
 
-def native_path(result, pcm, enc, enc_vbr, bench, corpus):
+def native_path(result, pcm, enc, enc_vbr):
     """Phase 8."""
     t0 = time.perf_counter()
     native_build_and_tables(result)
     native_pack_at_main_shape(result, pcm, enc_vbr)
-    native_corpus_encode(result, bench, corpus)
     native_cli(result, pcm, enc, enc_vbr)
     result["main"]["phase8_s"] = time.perf_counter() - t0
     log(f"[phase 8] total {result['main']['phase8_s']:.2f} s")
@@ -2893,6 +3053,7 @@ def run(here):
         "lms_decode": lms_sweep(rng),
     }
     errs["dequant_cbr"], errs["dequant_vbr"] = dequant_sweeps(rng)
+    errs["serialize_vbr"] = serialize_vbr_sweep()
     dequant_kernels_exhaustive()
     for name, err in oversize_rows(rng).items():
         errs[name] = max(errs[name], err)
@@ -2902,7 +3063,7 @@ def run(here):
     enc = main_path(result, pcm, "cbr", EncoderSettings(), cbr_chunk_size(c, 5120, 4, 20, 3),
                     ("fused_decode_cbr", "window_search"))
     enc_vbr = main_path(result, pcm, "vbr", vbr_settings(), vbr_chunk_size(vbr_settings(), c),
-                        ("fused_decode_vbr", "window_search_full", "window_search_ranks_only"))
+                        ("fused_decode_vbr", "window_search_full", "window_search_ranks_only", "serialize_vbr"))
     corpus = make_corpus(rng)
     corpus_path(result, corpus)
     bench = corpus_encode_path(result, corpus)
@@ -2910,14 +3071,14 @@ def run(here):
     session_path(result)
     front_ends(result, here, pcm, enc, enc_vbr, bench, corpus)
     serving_path(result, here, enc, enc_vbr)
-    native_path(result, pcm, enc, enc_vbr, bench, corpus)
+    native_path(result, pcm, enc, enc_vbr)
     examples_path(result, here)
     del corpus, bench
     clock_mhz = float(smi("clocks.max.sm", ",nounits"))
     kernels = []
     phase5 = [decode_at_main_shape(enc, result), vbr_decode_at_main_shape(enc_vbr, result),
               *two_kernel_at_main_shape(enc, enc_vbr, result, here),
-              search_at_main_shape(pcm, enc, result)]
+              serialize_vbr_at_cell_shape(result), search_at_main_shape(pcm, enc, result)]
     for err, k in phase5:
         k["max_abs_err"] = max(errs[k["name"]], err)
         bounds(k, clock_mhz)

@@ -6,10 +6,11 @@ same ``.sea`` bytes and the same decoded PCM, bit for bit. This package
 imports neither JAX nor anything of ``sea_codec_tpu``.
 
 - ``ops/``    -- tables, bit packing, the LMS predictor, the decode and
-                 encode pipelines, and the six CUDA kernels with their
+                 encode pipelines, and the seven CUDA kernels with their
                  plain PyTorch versions (``fused_decode``,
                  ``fused_decode_vbr``, ``window_search``, ``lms_decode``,
-                 and the two of ``dequant``; sources in ``csrc/``, built by
+                 the two of ``dequant``, and the VBR row serializer of
+                 ``serialize_device``; sources in ``csrc/``, built by
                  ``ops/cuda_build.py``); the five decode kernels are
                  ``torch.library`` custom ops (``ops/custom_ops.py``), so
                  that ``torch.export`` traces through them.
@@ -41,9 +42,10 @@ imports neither JAX nor anything of ``sea_codec_tpu``.
 - ``utils/cache.py`` -- the kernel build cache (``SEA_TORCH_CACHE``):
                  where the nvcc builds go and are loaded from.
 - ``native/`` -- the C++ host codec (``sea_native.cpp``, built by the host
-                 compiler into the same cache): the VBR row pack of
-                 ``batch.serialize_full_chunks`` and ``seaconv --backend
-                 native``.
+                 compiler into the same cache): the host VBR row pack of
+                 ``batch.serialize_full_chunks`` (the encoders pack the
+                 rows of chunks on a card there, by the row kernel) and
+                 ``seaconv --backend native``.
 
 Entry points run on the CUDA card unless ``device`` says otherwise.
 """

@@ -14,10 +14,11 @@ final chunk decodes the same way (``models.decoder``). ``decode_range``
 decodes only the chunks a frame range touches; ``decode_corpus`` merges the
 chunks of many files, ragged tails included, into shared batches.
 Encode: the scale-factor search kernel walks every window of every full
-chunk (``ops.encode_file``: one launch for CBR, two per chunk for VBR); CBR
-rows are packed on the device (``ops.serialize_device``), VBR rows on the
-host (``serialize_full_chunks``); the ragged tail chunk is encoded from the
-carried state (``models.cbr``, ``models.vbr``). ``encode_corpus`` packs
+chunk (``ops.encode_file``: one launch for CBR, two per chunk for VBR); the
+full chunks' rows are packed on the device (``ops.serialize_device``: CBR
+in plain PyTorch, VBR by a kernel of its own; ``serialize_full_chunks`` is
+the host's VBR pack); the ragged tail chunk is encoded from the carried
+state (``models.cbr``, ``models.vbr``). ``encode_corpus`` packs
 many files' channels into the lanes of the same launches (each lane its own
 LMS carry and valid lengths), run through time in slabs of chunk indices
 that bound device memory, so a corpus takes about as long on the card as
@@ -66,7 +67,8 @@ from .ops.encode_file import (
     vbr_sizes_rows,
 )
 from .ops.lms import initial_history as lms_init_history, initial_weights as lms_init_weights
-from .ops.serialize_device import cbr_chunk_size
+from .ops import serialize_device
+from .ops.serialize_device import cbr_chunk_size, corpus_rows_vbr_device, vbr_chunk_size
 from .ops.window_search import window_search
 from .parallel.pipeline import Shard, encode_corpus_blocks_sharded, row_ranges, shards
 from .utils.device import resolve_device
@@ -85,10 +87,12 @@ _PACK_BLOCK_ROWS = 64  # chunks per numpy VBR residual pack; the bytes do not de
 # ``encode_fetch``/``decode_fetch`` (waiting for the card's work not yet
 # done and the device->host download), ``encode_assemble``/
 # ``decode_assemble`` (host CPU: container serialize / PCM reassembly) and
-# within VBR's ``encode_assemble`` ``encode_pack`` (``serialize_full_chunks``),
-# ``*_put_bytes``/``*_fetch_bytes``, the bytes moved,
-# ``encode_search_launches_count``, the search's kernel launches, and
-# ``encode_search_lanes_count``, the lanes of those launches; and
+# ``encode_pack`` (VBR: the host's enqueue of a slab's device row
+# serializer), ``*_put_bytes``/``*_fetch_bytes``, the bytes moved,
+# ``encode_search_launches_count``, the search's kernel launches,
+# ``encode_search_lanes_count``, the lanes of those launches, and
+# ``encode_serialize_launches_count`` (VBR), the row serializer's kernel
+# launches; and
 # ``decode_range`` records ``range_split`` (header read and body slicing),
 # ``range_parse`` (host parse of the touched chunks) and ``range_decode``
 # (upload, launch, download and the wait for the card). Each stage is also
@@ -706,8 +710,10 @@ def serialize_full_chunks(
 
     All full chunks share section lengths (the distribution counts are
     static per full chunk, so the residual bit total is constant), making
-    the body one rectangular pack. Variable-width residuals cannot use the
-    device serializer's static layouts. The native C++ packer packs each
+    the body one rectangular pack. The host API, as in the JAX package: the
+    encoders pack the rows of chunks that lie on a card there
+    (``ops.serialize_device.corpus_rows_vbr_device``), and the tests hold
+    that to this function. The native C++ packer packs each
     section in one call over all rows (its rows shard over host threads), as
     the JAX package does; without a C++ compiler, numpy's ``bitpack`` packs
     the residuals ``_PACK_BLOCK_ROWS`` rows at a time to bound its
@@ -763,8 +769,9 @@ def encode_sea(
     """Whole-file encode, byte-identical to the JAX package's
     ``batch.encode_sea``. CBR: one search launch for all full chunks, rows
     packed on the device. VBR: two search launches per full chunk
-    (``ops.encode_file``), rows packed on the host. The ragged tail chunk is
-    encoded from the carried state."""
+    (``ops.encode_file``), rows packed on the device by the VBR row kernel
+    (``ops.serialize_device.corpus_rows_vbr_device``, one file). The ragged
+    tail chunk is encoded from the carried state."""
     from .encoder import EncoderSettings, coerce_samples, validate_encode_params
     from .models.cbr import CbrEncoderModel
     from .models.common import EncoderBaseState
@@ -811,6 +818,8 @@ def encode_sea(
         x = torch.from_numpy(pcm).to(dev).reshape(nc_full, fpc, c)
         if settings.vbr:
             m1, _t, p1, p2 = interpolate_distribution((fpc * c) // sff, target)
+            full_size = vbr_chunk_size(c, fpc, sfb, sff, vbr_base(target), (m1, p1, p2))
+            _check_chunk_size(full_size)
             sf, codes, sizes, ehist, ewts, hist, wts, prev = encode_file_vbr(
                 x, state.hist, state.wts, state.prev_sf,
                 scale_factor_frames=sff,
@@ -818,12 +827,13 @@ def encode_sea(
                 base=vbr_base(target),
                 dist=(m1, p1, p2),
             )
-            rows = serialize_full_chunks(
-                *(t.cpu().numpy() for t in (sf, codes, sizes, ehist, ewts)),
+            rows = corpus_rows_vbr_device(
+                sf, codes, sizes, ehist, ewts, 1,
                 scale_factor_bits=sfb,
                 scale_factor_frames=sff,
                 residual_size=residual_size,
-            )
+                chunk_size=full_size,
+            )[0].cpu().numpy()
         else:
             sf, codes, ehist, ewts, hist, wts, prev = encode_file_cbr(
                 x, state.hist, state.wts, state.prev_sf,
@@ -873,11 +883,11 @@ def encode_sea(
 # encode_corpus sizes a lane group's slab, the run of chunk indices it
 # searches in one go, by the device memory it takes: per lane and frame of
 # the slab, its staged and laid-out samples (2 + 2 bytes), its codes (1),
-# the valid counts, scale factors and ranks (under 1), the device
+# the valid counts, scale factors and ranks (under 1), the CBR device
 # serializer's int32 temporaries (about 8) and, for VBR, the stacked
-# per-chunk outputs (2); 16 bytes leave room (a CBR slab of 256 lanes x 436
-# chunks x 2,400 frames peaked at 3,949,203,456 bytes on an H100, 14.7 a
-# lane-frame). One slab stays within _GROUP_DEVICE_BYTES, whatever the
+# per-chunk outputs (2) and the row kernel's rows (under 1); 16 bytes leave
+# room (a CBR slab of 256 lanes x 436 chunks x 2,400 frames peaked at
+# 3,949,203,456 bytes on an H100, 14.7 a lane-frame). One slab stays within _GROUP_DEVICE_BYTES, whatever the
 # length of the group's files.
 _LANE_FRAME_BYTES = 16
 _GROUP_DEVICE_BYTES = 4 << 30
@@ -1095,10 +1105,13 @@ def encode_corpus(
     written in place slab by slab on host threads other than the one
     that enqueues the card's work (``_Container``). VBR: a loop over chunk
     index, two launches each over every lane, each file ranked on its own
-    (``ops.encode_file.corpus_vbr_nv``);
+    (``ops.encode_file.corpus_vbr_nv``), each slab's full-chunk rows then
+    packed on the device by the VBR row kernel
+    (``ops.serialize_device.corpus_rows_vbr_device``), so that only the
+    finished rows come down and a file is joined once with its header;
     then every ragged tail of the group in two more launches from the
-    carry after its last slab (``_encode_tails_vbr_batched``); rows packed
-    on the host.
+    carry after its last slab (``_encode_tails_vbr_batched``), each tail
+    chunk serialized on the host.
 
     Pipelined: up to ``pipeline_depth`` slabs are in flight before the
     oldest is assembled. A slab's upload runs on a side stream and its
@@ -1121,11 +1134,12 @@ def encode_corpus(
     ``encode_put``, ``encode_fetch`` and ``encode_assemble`` and the
     ``encode_put_bytes``/``encode_fetch_bytes`` counters are recorded, as in
     the JAX package, and besides ``encode_search`` (the host's enqueue of a
-    slab's search launches), ``encode_pack`` (VBR: ``serialize_full_chunks``
-    inside ``encode_assemble``), ``encode_search_launches_count`` (the
-    ``window_search`` launches of the ``encode_search`` stages) and
-    ``encode_search_lanes_count`` (the lanes of those launches, summed);
-    each stage
+    slab's search launches), ``encode_pack`` (VBR: the host's enqueue of a
+    slab's row serializer), ``encode_search_launches_count`` (the
+    ``window_search`` launches of the ``encode_search`` stages),
+    ``encode_search_lanes_count`` (the lanes of those launches, summed) and
+    ``encode_serialize_launches_count`` (VBR: the row kernel's launches of
+    the ``encode_pack`` stages, 0 on the CPU); each stage
     is also a profiler range. ``encode_put`` is the host's part of the
     upload (pinning and enqueue): no stage synchronizes the card. Not
     carried over: its 128-lane groups (blocks) and their
@@ -1155,6 +1169,7 @@ def encode_corpus(
         base = vbr_base(target)
         residual_size = chunk_residual_size(settings.residual_bits, target)
         m1, _t, p1, p2 = interpolate_distribution((fpc * c) // sff, target)
+        vbr_size = vbr_chunk_size(c, fpc, sfb, sff, base, (m1, p1, p2))  # a full VBR chunk's bytes
     chunk_type = CHUNK_TYPE_VBR if settings.vbr else CHUNK_TYPE_CBR
     results: list = [b""] * len(files)  # bytes, or a CBR _Container until its writes have run
 
@@ -1230,6 +1245,18 @@ def encode_corpus(
             _count("encode_search_lanes_count", search_op.lanes - lanes0)
             return outs
 
+        def pack(outs):
+            """A VBR slab's full-chunk rows, packed on its device."""
+            _check_chunk_size(vbr_size)
+            launches0 = serialize_device.launches
+            with _pt("encode_pack"):
+                rows = corpus_rows_vbr_device(
+                    *outs, nf, scale_factor_bits=sfb, scale_factor_frames=sff,
+                    residual_size=residual_size, chunk_size=vbr_size,
+                )
+            _count("encode_serialize_launches_count", serialize_device.launches - launches0)
+            return [rows]
+
         def start():
             dev = xfer.dev
             return (lms_init_history(c, dev).repeat(nf, 1), lms_init_weights(c, dev).repeat(nf, 1),
@@ -1260,6 +1287,7 @@ def encode_corpus(
             else:
                 *outs, h, w, p = search(lambda: corpus_vbr_nv(
                     x, frames_d, h, w, p, base=base, dist=(m1, p1, p2), **skw))
+                outs = pack(outs)
             carry = (h, w, p)
             return group, (c0, c1), xfer.get(outs), outs
 
@@ -1291,8 +1319,8 @@ def encode_corpus(
     def assemble(entry) -> None:
         """Write a slab's CBR rows and tails into their files' containers
         (on their writers' threads, while this one enqueues the next
-        slabs), or append its VBR rows or the VBR tails to their files'
-        chunks, and finish each file whose last chunk is in (after the
+        slabs), or append views of its VBR rows, or the VBR tails, to their
+        files' chunks, and finish each file whose last chunk is in (after the
         tails, or in a group of empty files, every file), so that a file is
         written while the card still searches the slabs after it."""
         (idxs, fr, bodies), span, wait, _outs = entry  # _outs: the device outputs, alive until fetched
@@ -1317,17 +1345,11 @@ def encode_corpus(
                         bodies[j].place(tail)
             elif got is not None:
                 c0, c1 = span
-                sf, codes, sizes, ehist, ewts = got
+                (rows,) = got
                 for j, f in enumerate(fr):
-                    n = min(c1, f // fpc) - c0
+                    n = min(c1, f // fpc) - c0  # the file's full chunks in the slab
                     if n > 0:
-                        lanes = slice(j * c, (j + 1) * c)
-                        with _pt("encode_pack"):
-                            bodies[j].append(serialize_full_chunks(
-                                sf[:n, :, lanes], codes[:n, :, lanes], sizes[:n, :, lanes],
-                                ehist[:n, lanes], ewts[:n, lanes],
-                                scale_factor_bits=sfb, scale_factor_frames=sff, residual_size=residual_size,
-                            ))
+                        bodies[j].append(rows[j, :n])
             for j, (i, f) in enumerate(zip(idxs, fr)):
                 # every chunk in; a VBR tail comes with the tails, last
                 done = span is None or (-(-f // fpc) <= span[1] and not (settings.vbr and f % fpc))

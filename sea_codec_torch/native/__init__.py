@@ -1,5 +1,5 @@
 """The native C++ host codec (``sea_native.cpp``, built on demand into the
-build cache): the VBR row pack of ``batch.serialize_full_chunks`` and
+build cache): the host VBR row pack of ``batch.serialize_full_chunks`` and
 ``seaconv --backend native``. The counters ``builds`` (compiler runs) and
 ``pack_calls`` live in ``native.binding``."""
 

@@ -17,8 +17,10 @@ six functions with the same signatures and semantics. Three things differ:
   found. A compiler that runs and fails raises with its log.
 
 ``pack_calls`` counts the calls of ``native_pack_rows``:
-``batch.serialize_full_chunks`` packs every full VBR chunk through it when
-``available()``.
+``batch.serialize_full_chunks``, the host's VBR row pack, packs through it
+when ``available()``. The encoders pack the full VBR chunks of a card on
+the card (``ops.serialize_device.corpus_rows_vbr_device``), so on a card
+this counter does not move.
 """
 
 from __future__ import annotations

@@ -2,11 +2,11 @@
 // PyTorch port's host codec.
 //
 // Role in sea_codec_torch (its CUDA kernels are the primary path):
-//   1. The VBR row pack: batch.serialize_full_chunks packs every full VBR
-//      chunk's scale factors, 2-bit relative sizes and variable-width
+//   1. The host VBR row pack: batch.serialize_full_chunks packs full VBR
+//      chunks' scale factors, 2-bit relative sizes and variable-width
 //      residuals through sea_native_pack_rows (rows shard over a few host
-//      threads), as the JAX package's serializer does. Variable widths fit
-//      neither the device serializer's static layouts nor vectorized numpy.
+//      threads), as the JAX package's serializer does. The encoders pack
+//      the rows of chunks on a card there (csrc/serialize_vbr.cu).
 //   2. The CLI's host backend: `seaconv --backend native` encodes and
 //      decodes through sea_native_encode / sea_native_decode on the host,
 //      with no card.

@@ -25,7 +25,7 @@ from ..utils.cache import cache_dir
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 KERNEL_SOURCES = (
     "fused_decode_cbr", "fused_decode_vbr", "window_search",
-    "lms_decode", "dequant_cbr", "dequant_vbr",
+    "lms_decode", "dequant_cbr", "dequant_vbr", "serialize_vbr",
 )
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

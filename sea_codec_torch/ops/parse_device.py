@@ -14,8 +14,9 @@ closes the encode -> bytes -> decode pipeline on the card
 VBR full-chunk rows parse on the card too (``parse_chunks_vbr_device``):
 every section offset is static; only the residual bitstream's internal
 layout depends on the data, and that is the decoder's job (``chunk.rs:126-142``:
-the 2-bit size deltas are a constant-width section). VBR serialization
-stays on the host (data-dependent pack widths, ``batch.serialize_full_chunks``).
+the 2-bit size deltas are a constant-width section). VBR serialization has
+a kernel of its own (``serialize_device.corpus_rows_vbr_device``: the pack
+widths depend on the data, so the bit offsets are a scan of the sizes).
 
 Not carried over from the JAX package: its gather-free
 ``unpack_const_strided`` (TPU gathers are slow; a GPU gather is not) and

@@ -205,7 +205,7 @@ def test_dequant_kernels_share_the_fused_producers():
 
 
 @pytest.mark.parametrize("name", ["fused_decode_cbr", "fused_decode_vbr", "window_search",
-                                  "lms_decode", "dequant_cbr", "dequant_vbr"])
+                                  "lms_decode", "dequant_cbr", "dequant_vbr", "serialize_vbr"])
 def test_launchers_ask_for_shared_memory_once(name):
     """Every launcher asks for more than the default shared memory through
     ``launch.cuh``'s ``allow_smem`` (once per kernel, device and size, and

@@ -95,10 +95,12 @@ def test_decode_range_records_its_stages(vbr, start, n, installed):
 @pytest.mark.parametrize("vbr", [False, True])
 def test_encode_corpus_records_search_pack_and_launches(vbr, installed, counting_search):
     """The corpus encode records ``encode_search`` (and for VBR
-    ``encode_pack``) with its bytes unchanged, and
-    ``encode_search_launches_count`` equal to the change in the search's
-    launch counter: one launch for CBR, two a chunk index and two for the
-    tails for VBR."""
+    ``encode_pack``, the enqueue of each slab's row serializer) with its
+    bytes unchanged, ``encode_search_launches_count`` equal to the change in
+    the search's launch counter: one launch for CBR, two a chunk index and
+    two for the tails for VBR; and for VBR alone
+    ``encode_serialize_launches_count``, the row kernel's launches, which
+    on the CPU (the plain version) stay at 0."""
     st = EncoderSettings(frames_per_chunk=100, residual_bits=2.5 if vbr else 3.0, vbr=vbr)
     files = _files()
     want = batch.encode_corpus(files, TEST_SAMPLE_RATE, 2, st, device="cpu")
@@ -109,6 +111,10 @@ def test_encode_corpus_records_search_pack_and_launches(vbr, installed, counting
     assert ("encode_pack" in times) == vbr and times.get("encode_pack", 1) > 0
     n = times["encode_search_launches_count"]
     assert type(n) is int and n == ws.launches - before == (2 * 4 + 2 if vbr else 1)
+    assert ("encode_serialize_launches_count" in times) == vbr
+    if vbr:
+        rows = times["encode_serialize_launches_count"]
+        assert type(rows) is int and rows == 0
 
 
 @pytest.mark.parametrize("vbr", [False, True])
