@@ -1854,11 +1854,12 @@ def vbr_decode_at_main_shape(enc, result):
 
 def vbr_search_at_main_shape(pcm, enc, result, clock_mhz):
     """The search in its VBR forms at the VBR main path's shapes: the
-    two-pass file encode on the card reproduces the file's scale factors,
-    sizes, codes and chunk states, and packed on the host its bytes; on the
-    first two chunks it equals the plain version on the CPU, and so does
-    the tail chunk's encode from the carried state; the row kernel packs the
-    search's outputs on the card into the file's rows too. Prints each
+    two-pass encode core (``corpus_vbr_scan``, one file's lanes) on the
+    card reproduces the file's scale factors, sizes, codes and chunk
+    states, and packed on the host its bytes; on the first two chunks it
+    equals the plain version on the CPU, and so does the tail chunk's
+    encode from the carried state; the row kernel packs the search's
+    outputs on the card into the file's rows too. Prints each
     pass's kernel time on one chunk, the host pack's time and the row
     kernel's."""
     import torch
@@ -1871,7 +1872,7 @@ def vbr_search_at_main_shape(pcm, enc, result, clock_mhz):
     )
     from sea_codec_torch.ops import lms
     from sea_codec_torch.ops.device_decode import unpack_var
-    from sea_codec_torch.ops.encode_file import encode_file_vbr
+    from sea_codec_torch.ops.encode_file import corpus_n_valid, corpus_vbr_scan
     from sea_codec_torch.ops.serialize_device import corpus_rows_vbr_device
     from sea_codec_torch.ops.window_search import window_search
 
@@ -1883,12 +1884,19 @@ def vbr_search_at_main_shape(pcm, enc, result, clock_mhz):
     target = normalized_vbr_bitrate(st.residual_bits, f, sfb, sff)
     base = vbr_base(target)
     m1, _t, p1, p2 = interpolate_distribution(f * c // sff, target)
-    fkw = dict(scale_factor_frames=sff, scale_factor_bits=sfb, base=base, dist=(m1, p1, p2))
+    fkw = dict(scale_factor_frames=sff, scale_factor_bits=sfb, base=base, dist=(m1, p1, p2),
+               n_files=1)
     x = torch.from_numpy(pcm[: nc * f * c].reshape(nc, f, c)).cuda()
+    nv = corpus_n_valid(torch.full((c,), nc * f, device="cuda"), nc, f, sff, full_only=True)
     init = (lms.initial_history(c, "cuda"), lms.initial_weights(c, "cuda"),
             torch.zeros(c, dtype=torch.int32, device="cuda"))
 
-    file_ms, out = cuda_ms(lambda: encode_file_vbr(x, *init, **fkw), reps=1)
+    before = launch_counts()
+    file_ms, out = cuda_ms(lambda: corpus_vbr_scan(x, nv, *init, **fkw), reps=1)
+    after = launch_counts()
+    launches, ranks_only = (after[k] - before[k] for k in ("window_search", "window_search_ranks_only"))
+    check(launches == 2 * nc and ranks_only == nc,
+          f"VBR search: {launches} launches ({ranks_only} ranks-only) for {nc} chunks, not two a chunk")
     sf, codes, sizes, ehist, ewts = (t.cpu().numpy() for t in out[:5])
     i16 = lambda a: a.astype(np.int16).astype(np.int32)  # the chunk header's width
     check(np.array_equal(sf, b.sf) and np.array_equal(sizes, b.rs), "VBR search: sf/sizes != main-path file")
@@ -1916,12 +1924,12 @@ def vbr_search_at_main_shape(pcm, enc, result, clock_mhz):
 
     cpu_init = tuple(t.cpu() for t in init)
     t0 = time.perf_counter()
-    want = encode_file_vbr(x[:2].cpu(), *cpu_init, **fkw)
+    want = corpus_vbr_scan(x[:2].cpu(), nv[:2].cpu(), *cpu_init, **fkw)
     plain_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")  # the chunk loop must never wait for the card
     try:
-        got = encode_file_vbr(x[:2], *init, **fkw)
+        got = corpus_vbr_scan(x[:2], nv[:2], *init, **fkw)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     worst = worst_of(got, want, "VBR search on the first two main-path chunks")
@@ -1939,7 +1947,7 @@ def vbr_search_at_main_shape(pcm, enc, result, clock_mhz):
     ):
         check(np.array_equal(got_a, want_a) and np.array_equal(got_a, file_a),
               "VBR tail chunk: card != plain or != main-path file")
-    log(f"[phase 5] VBR search == main-path file over {nc} chunks ({2 * nc} launches, {file_ms:.3f} ms); "
+    log(f"[phase 5] VBR search == main-path file over {nc} chunks ({launches} launches, {file_ms:.3f} ms); "
         f"per chunk {[f, c]}: pass 1 ranks-only {p1_ms:.4f} ms (full form {full1_ms:.4f} ms), "
         f"pass 2 per-window sizes {p2_ms:.4f} ms; == plain on two chunks (plain {plain_ms:.1f} ms; "
         "the chunk loop ran without a host sync) "
@@ -1954,9 +1962,9 @@ def vbr_search_at_main_shape(pcm, enc, result, clock_mhz):
     bounds(k, clock_mhz)
     log(f"[phase 5] window_search, VBR file: {file_ms:.3f} ms; bound {k['bound_ms']:.4f} ms "
         f"(by {k['bound_by']}); chain {k['chain_ms']:.4f} ms at {clock_mhz} MHz "
-        f"({k['chain_ms'] / (2 * nc):.4f} ms per chunk launch)")
+        f"({k['chain_ms'] / launches:.4f} ms per chunk launch)")
     return worst, {
-        "file_ms": file_ms, "launches": 2 * nc, "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+        "file_ms": file_ms, "launches": launches, "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
         "chain_ms": k["chain_ms"], "least_ms": k["least_ms"], "pass1_ranks_only_ms_per_chunk": p1_ms,
         "pass1_full_form_ms_per_chunk": full1_ms, "pass2_ms_per_chunk": p2_ms,
         "plain_ms_two_chunks": plain_ms, "host_pack_ms": pack_s * 1e3,

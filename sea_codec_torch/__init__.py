@@ -22,14 +22,16 @@ imports neither JAX nor anything of ``sea_codec_tpu``.
 - ``container.py`` -- the ``.sea`` file/chunk framing (host-side bytes).
 - ``encoder.py``/``decoder.py`` -- settings and the streaming sessions
                  (``SeaEncoder``, ``SeaDecoder``), a chunk per call.
-- ``batch.py``/``api.py`` -- whole-file encode/decode, ``decode_range``,
+- ``batch.py``/``api.py`` -- ``encode_corpus`` (``encode_sea`` is its
+                 one-file case), whole-file decode, ``decode_range``,
                  ``decode_corpus``, the one-shot API with both engines.
 - ``convert.py`` -- carries state, settings, parsed batches and dq streams
                  over from the JAX package's numpy arrays.
 - ``parallel/`` -- ``pipeline``: the mesh of devices (``make_mesh``), the
-                 sharded chunk decode, ``corpus_transcode_step`` and the
-                 corpus encode's lane groups dealt over a mesh (the
-                 ``mesh`` argument of ``encode_corpus``/``decode_corpus``);
+                 sharded chunk decode, ``corpus_transcode_step`` and
+                 ``deal_files``, which deals the corpus encode's files to
+                 a mesh's entries (the ``mesh`` argument of
+                 ``encode_corpus``/``decode_corpus``);
                  ``distributed``: the process group and the files of each
                  process.
 - ``cli.py``/``__main__.py`` -- the ``seaconv`` CLI (``python -m

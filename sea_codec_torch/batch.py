@@ -13,20 +13,19 @@ recurrence kernel (``ops.dequant``, ``ops.lms_decode``). The ragged
 final chunk decodes the same way (``models.decoder``). ``decode_range``
 decodes only the chunks a frame range touches; ``decode_corpus`` merges the
 chunks of many files, ragged tails included, into shared batches.
-Encode: the scale-factor search kernel walks every window of every full
-chunk (``ops.encode_file``: one launch for CBR, two per chunk for VBR); the
-full chunks' rows are packed on the device (``ops.serialize_device``: CBR
-in plain PyTorch, VBR by a kernel of its own; ``serialize_full_chunks`` is
-the host's VBR pack); the ragged tail chunk is encoded from the carried
-state (``models.cbr``, ``models.vbr``). ``encode_corpus`` packs
-many files' channels into the lanes of the same launches (each lane its own
-LMS carry and valid lengths), run through time in slabs of chunk indices
-that bound device memory, so a corpus takes about as long on the card as
-its longest file.
+Encode: ``encode_corpus`` is the one encode path, and ``encode_sea`` is
+``encode_corpus`` of one file. It packs many files' channels into the lanes
+of the same search launches (``ops.encode_file``: each lane its own LMS
+carry and valid lengths; one launch a slab for CBR, two a chunk index for
+VBR), run through time in slabs of chunk indices that bound device memory,
+so a corpus takes about as long on the card as its longest file. The full
+chunks' rows are packed on the device (``ops.serialize_device``: CBR in
+plain PyTorch, VBR by a kernel of its own); ``serialize_full_chunks`` is
+the host's VBR pack, on no encode path.
 
 ``PIPELINE_TIMES``: when a caller installs a ``utils.profiling.StageTimes``
-here, ``encode_corpus``, ``decode_corpus`` and ``decode_range`` record
-where their wall time goes (see ``_pt``).
+here, ``encode_corpus`` (and so ``encode_sea``), ``decode_corpus`` and
+``decode_range`` record where their wall time goes (see ``_pt``).
 
 Output is byte-identical to ``sea_codec_tpu.batch``.
 """
@@ -70,7 +69,7 @@ from .ops.lms import initial_history as lms_init_history, initial_weights as lms
 from .ops import serialize_device
 from .ops.serialize_device import cbr_chunk_size, corpus_rows_vbr_device, vbr_chunk_size
 from .ops.window_search import window_search
-from .parallel.pipeline import Shard, encode_corpus_blocks_sharded, row_ranges, shards
+from .parallel.pipeline import Shard, deal_files, row_ranges, shards
 from .utils.device import resolve_device
 from .utils.errors import SeaInvalidFrame
 from .utils.profiling import stage_timer
@@ -446,8 +445,7 @@ def decode_corpus(
         raise ValueError(f"on_error must be 'raise' or 'skip', got {on_error!r}")
     if device_batch < 1:
         raise ValueError(f"device_batch must be >= 1, got {device_batch}")
-    dev = _unsharded_device(mesh, device)
-    entries = shards(mesh) if dev is None else [Shard(dev, own_stream=False)]
+    entries = _entries(mesh, device)
     staged: list[tuple | None] = []
     with _pt("decode_parse"):
         for encoded in files:
@@ -538,15 +536,15 @@ def decode_corpus(
         return _decode_corpus_results(staged, pcm_parts, tail_pcm, on_error)
 
 
-def _unsharded_device(mesh, device):
-    """The device a corpus path runs on without sharding: ``device``, or
-    the entry of a one-entry mesh; None for a mesh of more than one entry,
-    whose entries' devices are used."""
+def _entries(mesh, device) -> list[Shard]:
+    """What a corpus path runs on: a ``Shard`` with its own stream for each
+    entry of a mesh of more than one entry; else one entry on its device's
+    current stream, ``device`` or the entry of a one-entry mesh."""
     if mesh is None:
-        return resolve_device(device)
+        return [Shard(resolve_device(device), own_stream=False)]
     if device is not None:
         raise ValueError("pass a mesh or a device, not both")
-    return None if mesh.size > 1 else mesh.flat[0]
+    return shards(mesh) if mesh.size > 1 else [Shard(mesh.flat[0], own_stream=False)]
 
 
 def _group_key(fpc: int, c: int, batch: ParsedBatch) -> tuple:
@@ -767,117 +765,8 @@ def encode_sea(
     device=None,
 ) -> bytes:
     """Whole-file encode, byte-identical to the JAX package's
-    ``batch.encode_sea``. CBR: one search launch for all full chunks, rows
-    packed on the device. VBR: two search launches per full chunk
-    (``ops.encode_file``), rows packed on the device by the VBR row kernel
-    (``ops.serialize_device.corpus_rows_vbr_device``, one file). The ragged
-    tail chunk is encoded from the carried state."""
-    from .encoder import EncoderSettings, coerce_samples, validate_encode_params
-    from .models.cbr import CbrEncoderModel
-    from .models.common import EncoderBaseState
-    from .models.vbr import (
-        VbrEncoderModel,
-        chunk_residual_size,
-        interpolate_distribution,
-        normalized_vbr_bitrate,
-        vbr_base,
-    )
-    from .ops.encode_file import encode_file_cbr, encode_file_vbr
-    from .ops.serialize_device import serialize_chunks_cbr_device
-
-    if settings is None:
-        settings = EncoderSettings()
-    samples = coerce_samples(samples)
-    validate_encode_params(channels, settings, samples.shape[0] // max(channels, 1))
-    dev = resolve_device(device)
-    c = channels
-    fpc = settings.frames_per_chunk
-    sff = settings.scale_factor_frames
-    sfb = settings.scale_factor_bits
-    frames = samples.shape[0] // c
-    nc_full = frames // fpc
-    residual_size = int(np.floor(settings.residual_bits))
-    if settings.vbr:
-        target = normalized_vbr_bitrate(settings.residual_bits, fpc, sfb, sff)
-        residual_size = chunk_residual_size(settings.residual_bits, target)
-
-    header = SeaFileHeader(
-        version=1,
-        channels=c,
-        chunk_size=0,
-        frames_per_chunk=fpc,
-        sample_rate=sample_rate,
-        total_frames=frames,
-        metadata=settings.metadata,
-    )
-    state = EncoderBaseState.initial(c, dev)
-    chunks: list[bytes] = []
-    if nc_full:
-        # int16 on the wire; the kernel reads the interleaved PCM as is
-        pcm = np.require(samples[: nc_full * fpc * c], requirements=("C", "W"))
-        x = torch.from_numpy(pcm).to(dev).reshape(nc_full, fpc, c)
-        if settings.vbr:
-            m1, _t, p1, p2 = interpolate_distribution((fpc * c) // sff, target)
-            full_size = vbr_chunk_size(c, fpc, sfb, sff, vbr_base(target), (m1, p1, p2))
-            _check_chunk_size(full_size)
-            sf, codes, sizes, ehist, ewts, hist, wts, prev = encode_file_vbr(
-                x, state.hist, state.wts, state.prev_sf,
-                scale_factor_frames=sff,
-                scale_factor_bits=sfb,
-                base=vbr_base(target),
-                dist=(m1, p1, p2),
-            )
-            rows = corpus_rows_vbr_device(
-                sf, codes, sizes, ehist, ewts, 1,
-                scale_factor_bits=sfb,
-                scale_factor_frames=sff,
-                residual_size=residual_size,
-                chunk_size=full_size,
-            )[0].cpu().numpy()
-        else:
-            sf, codes, ehist, ewts, hist, wts, prev = encode_file_cbr(
-                x, state.hist, state.wts, state.prev_sf,
-                scale_factor_frames=sff,
-                scale_factor_bits=sfb,
-                residual_size=residual_size,
-            )
-            rows = serialize_chunks_cbr_device(
-                sf, codes, ehist, ewts,
-                scale_factor_bits=sfb,
-                scale_factor_frames=sff,
-                residual_size=residual_size,
-            ).cpu().numpy()
-        chunks.extend(bytes(row) for row in rows)
-        state = EncoderBaseState(hist, wts, prev)
-
-    # ragged tail chunk from the carried state (the session's final chunk)
-    tail_frames = frames - nc_full * fpc
-    if tail_frames:
-        if settings.vbr:
-            model = VbrEncoderModel(c, sfb, sff, settings.residual_bits, fpc, state)
-        else:
-            model = CbrEncoderModel(c, sfb, sff, settings.residual_bits, state)
-        ehist_t, ewts_t = model.lms_snapshot
-        enc = model.encode(samples[nc_full * fpc * c : frames * c])
-        chunk = SeaChunk(
-            channels=c,
-            frames_in_chunk=tail_frames,
-            chunk_type=CHUNK_TYPE_VBR if settings.vbr else CHUNK_TYPE_CBR,
-            scale_factor_bits=sfb,
-            scale_factor_frames=sff,
-            residual_size=residual_size,
-            lms_history=ehist_t,
-            lms_weights=ewts_t,
-            scale_factors=enc.scale_factors,
-            vbr_residual_sizes=enc.residual_bits,
-            residuals=enc.residuals,
-        )
-        chunks.append(chunk.serialize())
-
-    if chunks:
-        _check_chunk_size(len(chunks[0]))
-        header.chunk_size = len(chunks[0])
-    return header.serialize() + b"".join(chunks)
+    ``batch.encode_sea``: ``encode_corpus`` of one file."""
+    return encode_corpus([samples], sample_rate, channels, settings, device=device)[0]
 
 
 # encode_corpus sizes a lane group's slab, the run of chunk indices it
@@ -905,8 +794,17 @@ def _copy_pool() -> ThreadPoolExecutor:
     return ThreadPoolExecutor(_STAGE_THREADS, thread_name_prefix="sea-copy")
 
 
-if hasattr(os, "register_at_fork"):  # a forked child has none of the pool's threads
+@functools.cache
+def _write_pools(n: int) -> tuple[ThreadPoolExecutor, ...]:
+    """``n`` one-thread writers for ``_Container``, made once a process as
+    ``_copy_pool`` is: started and joined at every call, they cost a short
+    file more than its writes."""
+    return tuple(ThreadPoolExecutor(1, thread_name_prefix="sea-write") for _ in range(n))
+
+
+if hasattr(os, "register_at_fork"):  # a forked child has none of the pools' threads
     os.register_at_fork(after_in_child=_copy_pool.cache_clear)
+    os.register_at_fork(after_in_child=_write_pools.cache_clear)
 
 
 def _copy(pairs) -> None:
@@ -1085,9 +983,10 @@ def encode_corpus(
     device=None,
     mesh=None,
 ) -> list[bytes]:
-    """Encode many files at once, each byte-identical to ``encode_sea``.
-    All files share ``channels`` and ``settings``; empty and sub-chunk files
-    are allowed.
+    """Encode many files at once, each byte-identical to the JAX package's
+    ``batch.encode_sea`` of that file alone (``encode_sea`` here is this
+    function on one file). All files share ``channels`` and ``settings``;
+    empty and sub-chunk files are allowed.
 
     Files go into lane groups (``_lane_groups``: longest first, each
     group's lanes bounded by device memory at a slab of one chunk); each
@@ -1121,14 +1020,15 @@ def encode_corpus(
     assembles that slab's rows.
 
     ``mesh``: a ``parallel.pipeline.Mesh`` of more than one entry deals
-    the files to its entries, longest first, each to the entry with the
-    least work so far; each entry forms its lane groups as above and runs
-    their slabs on its own device and stream with its own transfer
-    streams, one host thread enqueueing the entries in turn
-    (``parallel.pipeline.encode_corpus_blocks_sharded``), up to
-    ``pipeline_depth`` slabs an entry in flight. Outputs come back in file
-    order, the bytes identical to ``mesh=None``; ``device`` must then be
-    None. A mesh of one entry is the unsharded path on that entry's device.
+    the files to its entries (``parallel.pipeline.deal_files``: longest
+    first, each to the entry with the least work so far); each entry forms
+    its lane groups as above and runs their slabs on its own device and
+    stream with its own transfer streams, one host thread enqueueing the
+    entries' steps in turn, up to ``pipeline_depth`` slabs an entry in
+    flight. A device is a one-entry list on its current stream, which
+    every file is dealt to. Outputs come back in file order, the bytes
+    identical to ``mesh=None``; ``device`` must then be None. A mesh of one
+    entry is the unsharded path on that entry's device.
 
     With ``PIPELINE_TIMES`` set, the stages ``encode_stage``,
     ``encode_put``, ``encode_fetch`` and ``encode_assemble`` and the
@@ -1159,7 +1059,7 @@ def encode_corpus(
     frames = [f.shape[0] // c for f in files]
     for fr in frames:
         validate_encode_params(c, settings, fr)
-    dev = _unsharded_device(mesh, device)
+    entries = _entries(mesh, device)
     fpc = settings.frames_per_chunk
     sff = settings.scale_factor_frames
     sfb = settings.scale_factor_bits
@@ -1182,8 +1082,7 @@ def encode_corpus(
             sample_rate=sample_rate, total_frames=frames[i], metadata=settings.metadata,
         ).serialize()
 
-    n_writers = 0 if settings.vbr else _WRITE_THREADS
-    writers = [ThreadPoolExecutor(1, thread_name_prefix="sea-write") for _ in range(n_writers)]
+    writers = () if settings.vbr else _write_pools(_WRITE_THREADS)
 
     def container(i: int, j: int) -> _Container:
         """CBR file ``i``'s container, whose length its frames fix (the
@@ -1357,25 +1256,34 @@ def encode_corpus(
                     finish(i, bodies[j])
                     bodies[j] = None
 
-    if dev is None:
-        launched = encode_corpus_blocks_sharded(mesh, frames, c, fpc, launch)
-        depth = pipeline_depth * mesh.size
-    else:
-        xfer = _Transfers(dev)
-        launched = (step() for idxs in _lane_groups(frames, c, fpc) for step in launch(idxs, xfer))
-        depth = pipeline_depth
+    def steps(idxs, xfer):
+        """An entry's steps: those of its files' lane groups, in turn."""
+        for g in _lane_groups([frames[i] for i in idxs], c, fpc):
+            yield from launch([idxs[j] for j in g], xfer)
+
+    def launched():
+        """The entries' steps round robin (their first steps, then their
+        second ones, ...), each run on its entry's device and stream."""
+        queue = deque((shard, steps(idxs, _Transfers(shard.device)))
+                      for shard, idxs in zip(entries, deal_files(frames, len(entries))))
+        while queue:
+            shard, it = queue.popleft()
+            step = next(it, None)
+            if step is None:
+                continue
+            with shard.on():
+                out = step()
+            queue.append((shard, it))
+            yield out
+
     staged: deque = deque()
-    try:
-        for entry in launched:
-            staged.append(entry)
-            if len(staged) > depth:
-                assemble(staged.popleft())
-        while staged:
+    for entry in launched():
+        staged.append(entry)
+        if len(staged) > pipeline_depth * len(entries):
             assemble(staged.popleft())
-        return [r.done() if isinstance(r, _Container) else r for r in results]
-    finally:
-        for w in writers:
-            w.shutdown(cancel_futures=True)
+    while staged:
+        assemble(staged.popleft())
+    return [r.done() if isinstance(r, _Container) else r for r in results]
 
 
 def _encode_tails_vbr_batched(xt, nv_frames, hist, wts, prev, tail_frames, *, channels, sfb, sff, target):

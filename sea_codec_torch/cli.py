@@ -18,11 +18,11 @@ Two flags differ from the JAX package's CLI:
   reads ``JAX_PLATFORMS``. Without a card the CLI exits with an error
   unless given ``--device cpu``; it never falls back to the CPU on its own.
 - ``--backend {auto,torch,native}``: ``auto`` and ``torch`` run the port's
-  pipeline (encode through ``batch.encode_sea``, decode through
-  ``batch.decode_sea``) on ``--device``; ``native`` runs the C++ host codec
-  (``native.native_encode``/``native_decode``) on the host, as the JAX
-  package's ``native`` does, and ``--device`` does not apply to it. The JAX
-  package's ``jax`` backend is not offered.
+  pipeline (encode through ``batch.encode_sea``, the corpus encode of one
+  file, decode through ``batch.decode_sea``) on ``--device``; ``native``
+  runs the C++ host codec (``native.native_encode``/``native_decode``) on
+  the host, as the JAX package's ``native`` does, and ``--device`` does
+  not apply to it. The JAX package's ``jax`` backend is not offered.
 """
 
 from __future__ import annotations

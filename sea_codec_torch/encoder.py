@@ -8,7 +8,8 @@ The file header is written after the first chunk (so ``chunk_size`` is
 known) except in explicit streaming mode (``total_frames == 0``), where it
 is written upfront with ``chunk_size`` still 0 (reference
 ``encoder.rs:70-77,134-138``). The one-shot API's batch engine encodes
-whole files through ``batch.encode_sea`` instead.
+whole files through ``batch.encode_sea`` (the corpus encode of one file)
+instead.
 """
 
 from __future__ import annotations

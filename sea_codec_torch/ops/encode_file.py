@@ -1,34 +1,33 @@
-"""Whole-file encoding of the full chunks.
+"""The search cores of the encode, CBR and VBR (``batch.encode_corpus``,
+which ``batch.encode_sea`` runs with one file).
+
+Each lane of a launch is one channel of one file (lane = file * C +
+channel), with its own LMS carry and its own valid length per window, so a
+lane past its file's end is masked and its carry passes through unchanged.
 
 CBR: the sequential chunk chain of a file is one run of windows (the LMS
 state and the previous winning scale factor carry from each window to the
-next, across chunk boundaries), so all full chunks go through ONE
-window-search call (``ops.window_search``), which also snapshots each
-chunk's entry LMS state for the chunk headers (reference
-``src/codec/file.rs:146-149``).
+next, across chunk boundaries), so every chunk of every lane in a slab goes
+through ONE window-search call (``ops.window_search``), tails included
+(they ride the scan masked), which also snapshots each chunk's entry LMS
+state for the chunk headers (reference ``src/codec/file.rs:146-149``).
 
 VBR: each chunk is searched twice (reference ``encoder_vbr.rs:139-171``):
 pass 1 at ``base+1`` for the error ranks, then pass 2 with the sizes the
 ranking assigns, from the same entry LMS state and pass 1's previous scale
-factor. The ranking between the passes makes every chunk wait for the one
-before, so this is a host loop over chunks, two launches each; everything
-in it stays on the device and nothing in it waits for the device. Pass 2
-stages only the sizes the ranking can assign (``vbr_size_range``).
+factor, each file's windows ranked on their own. The ranking between the
+passes makes every chunk wait for the one before, so this is a host loop
+over chunk index, two launches each over all lanes; everything in it stays
+on the device and nothing in it waits for the device. Pass 2 stages only
+the sizes the ranking can assign (``vbr_size_range``).
 
-The corpus half (``corpus_n_valid``, ``corpus_cbr_scan``,
-``corpus_cbr_packed``, ``corpus_vbr_scan``, ``corpus_vbr_nv``) encodes many
-files at once: each lane of a launch is one channel of one file
-(lane = file * C + channel), with its own LMS carry and its own valid
-length per window, so a lane past its file's end is masked and its carry
-passes through unchanged. CBR is one search launch over every chunk of
-every file, tails included (they ride the scan masked); VBR is a host loop
-over chunk index, two launches each over all lanes, with each file's
-windows ranked on their own. Not carried over from the JAX package, whose
-forms exist for the TPU: the 128-lane groups and the ``*_blocks``
-variants that batch lane groups into one program (``lax.map`` relay
-batching), the kernel's padded valid-length layout (``_nv_pallas_layout``),
-and the one-file-at-a-time fallback for more than 128 channels or sfb 8:
-one block per lane here takes every legal configuration.
+Not carried over from the JAX package, whose forms exist for the TPU: its
+single-file cores ``encode_file_cbr``/``encode_file_vbr`` (one file is a
+corpus of one here), the 128-lane groups and the ``*_blocks`` variants that
+batch lane groups into one program (``lax.map`` relay batching), the
+kernel's padded valid-length layout (``_nv_pallas_layout``), and the
+one-file-at-a-time fallback for more than 128 channels or sfb 8: one block
+per lane here takes every legal configuration.
 """
 
 from __future__ import annotations
@@ -39,28 +38,6 @@ from .window_search import window_search
 
 _SIGN64 = -(1 << 63)
 _KEY_MAX = (1 << 63) - 1
-
-
-def encode_file_cbr(
-    samples,  # int16[nc, fpc, C] full chunks only
-    hist0,  # int32[C, 4]
-    wts0,  # int32[C, 4]
-    prev0,  # int32[C]
-    *,
-    scale_factor_frames: int,
-    scale_factor_bits: int,
-    residual_size: int,
-):
-    """Returns (sf uint8[nc, W, C], codes uint8[nc, fpc, C],
-    ehist int32[nc, C, 4], ewts int32[nc, C, 4], hist, wts, prev)."""
-    nc, fpc, c = samples.shape
-    sff = scale_factor_frames
-    w = fpc // sff
-    sf, codes, _ranks, ehist, ewts, hist, wts, prev = window_search(
-        samples.reshape(nc * fpc, c), None, hist0, wts0, prev0,
-        sfb=scale_factor_bits, rs=residual_size, sff=sff, wpc=w,
-    )
-    return sf.reshape(nc, w, c), codes.reshape(nc, fpc, c), ehist, ewts, hist, wts, prev
 
 
 def vbr_sizes_rows(ranks, base: int, m1, p1, p2, sortable=None):
@@ -105,42 +82,6 @@ def vbr_size_range(base: int) -> tuple[int, int]:
     """The sizes ``vbr_sizes`` can assign, base-1..base+2 clamped to 1..8:
     the search stages only their table rows."""
     return min(max(base - 1, 1), 8), min(base + 2, 8)
-
-
-def encode_file_vbr(
-    samples,  # int16[nc, fpc, C] full chunks only
-    hist0,  # int32[C, 4]
-    wts0,  # int32[C, 4]
-    prev0,  # int32[C]
-    *,
-    scale_factor_frames: int,
-    scale_factor_bits: int,
-    base: int,  # trunc(normalized target bitrate)
-    dist: tuple[int, int, int],  # (m1, p1, p2) counts, the same for every full chunk
-):
-    """Returns (sf uint8[nc, W, C], codes uint8[nc, fpc, C],
-    sizes uint8[nc, W, C], ehist int32[nc, C, 4], ewts int32[nc, C, 4],
-    hist, wts, prev)."""
-    nc, fpc, c = samples.shape
-    kw = dict(sfb=scale_factor_bits, sff=scale_factor_frames, wpc=fpc // scale_factor_frames)
-    hist, wts, prev = hist0, wts0, prev0
-    out = []
-    for k in range(nc):
-        x = samples[k]
-        # pass 1: analyze at base+1; LMS restored, prev_sf kept
-        _sf, _codes, ranks, _eh, _ew, _h1, _w1, prev1 = window_search(
-            x, None, hist, wts, prev, rs=base + 1, ranks_only=True, **kw
-        )
-        sizes = vbr_sizes(ranks, base, dist)
-        sf, codes, _ranks, _eh, _ew, h2, w2, p2 = window_search(
-            x, None, hist, wts, prev1, rs=sizes, rs_range=vbr_size_range(base), **kw
-        )
-        out.append((sf, codes, sizes.to(torch.uint8), hist, wts))
-        hist, wts, prev = h2, w2, p2
-    if not out:
-        raise ValueError("encode_file_vbr needs at least one full chunk")
-    sf, codes, sizes, ehist, ewts = (torch.stack(p) for p in zip(*out))
-    return sf, codes, sizes, ehist, ewts, hist, wts, prev
 
 
 def corpus_n_valid(frames, nc: int, fpc: int, sff: int, full_only: bool):

@@ -255,7 +255,12 @@ def deal_files(frames: list[int], n: int) -> list[list[int]]:
     """Corpus file indices dealt to ``n`` entries: longest file first, each
     to the entry with the least work so far (its files' frames: the files
     of one call share their channel count; the lowest entry on a tie).
-    Returns each entry's file indices in dealing order."""
+    Returns each entry's file indices in dealing order. ``batch.encode_corpus``
+    deals its files so, to a mesh's entries or to one device.
+
+    The JAX package's sharded encode takes 128-lane blocks padded to a
+    whole number of shards, for one SPMD program; here each slab is its own
+    launch, so neither the blocks nor the padding are carried over."""
     load = [0] * n
     out: list[list[int]] = [[] for _ in range(n)]
     for i in sorted(range(len(frames)), key=lambda i: -frames[i]):
@@ -264,35 +269,3 @@ def deal_files(frames: list[int], n: int) -> list[list[int]]:
         load[e] += frames[i]
     return out
 
-
-def encode_corpus_blocks_sharded(mesh: Mesh, frames: list[int], channels: int, frames_per_chunk: int, launch):
-    """The corpus encode's lane groups over ``mesh``: what
-    ``batch.encode_corpus(mesh=...)`` runs. Files are dealt to the entries
-    (``deal_files``), each entry's files form lane groups as on one device
-    (``batch._lane_groups``: longest first, bounded by a slab of chunks),
-    and ``launch(idxs, transfers)`` (``encode_corpus``'s) gives each
-    group's steps with that entry's ``batch._Transfers``: each step stages,
-    uploads and searches one slab of the group
-    (``ops.encode_file.corpus_cbr_packed`` or ``corpus_vbr_nv``) from the
-    carry of the slab before, or encodes the VBR tails. Each step runs on
-    its entry's device and stream. One host thread enqueues the entries in
-    turn (their first steps, then their second ones, ...); yields what the
-    steps return, in that order.
-
-    The JAX package's version takes 128-lane blocks padded to a whole
-    number of shards, for one SPMD program; here each slab is its own
-    launch, so neither the blocks nor the padding are carried over."""
-    from ..batch import _lane_groups, _Transfers
-
-    sh = shards(mesh)
-    xfers = [_Transfers(s.device) for s in sh]
-    plan = []
-    for xfer, idxs in zip(xfers, deal_files(frames, len(sh))):
-        groups = _lane_groups([frames[i] for i in idxs], channels, frames_per_chunk)
-        plan.append([step for g in groups for step in launch([idxs[j] for j in g], xfer)])
-    for r in range(max((len(p) for p in plan), default=0)):
-        for shard, steps in zip(sh, plan):
-            if r < len(steps):
-                with shard.on():
-                    out = steps[r]()
-                yield out

@@ -14,9 +14,11 @@ import torch
 
 from sea_codec_torch import EncoderSettings, sea_decode, sea_encode
 from sea_codec_torch.batch import split_chunks
+from sea_codec_torch.utils.errors import SeaInvalidFile
 from sea_codec_tpu import EncoderSettings as JaxSettings
 from sea_codec_tpu.batch import decode_sea as jax_decode
 from sea_codec_tpu.batch import encode_sea as jax_encode
+from sea_codec_tpu.utils.errors import SeaInvalidFile as JaxInvalidFile
 from sea_codec_tpu.utils.signal import varied_signal
 
 torch.set_num_threads(1)
@@ -57,6 +59,8 @@ def test_fixture_round_trip(name):
         (8, 150, 64, 8, 5, 8.0),
         (1, 250, 250, 25, 3, 2.7),
         (3, 90, 120, 20, 6, 4.0),
+        (2, 0, 96, 16, 4, 3.0),  # empty: the header alone
+        (2, 37, 96, 16, 4, 3.0),  # the tail chunk alone
     ],
 )
 def test_seeded_round_trip_matches_jax(channels, frames, fpc, sff, sfb, rb):
@@ -67,11 +71,24 @@ def test_seeded_round_trip_matches_jax(channels, frames, fpc, sff, sfb, rb):
     )
     encoded = sea_encode(sig, 44100, channels, EncoderSettings(**kw), device="cpu")
     assert encoded == jax_encode(sig, 44100, channels, JaxSettings(**kw))
+    if not frames:  # a header with chunk_size 0, which both decoders reject
+        assert_both_reject(encoded)
+        return
     header, _rect, _tail = split_chunks(encoded)
     assert (header.channels, header.total_frames, header.frames_per_chunk) == (channels, frames, fpc)
     out = sea_decode(encoded, device="cpu")
     np.testing.assert_array_equal(out.samples, jax_decode(encoded).samples)
     assert out.samples.shape == (frames * channels,)
+
+
+def assert_both_reject(encoded: bytes) -> None:
+    """The port's and the JAX package's decoders reject ``encoded`` with
+    the same message."""
+    with pytest.raises(SeaInvalidFile) as got:
+        sea_decode(encoded, device="cpu")
+    with pytest.raises(JaxInvalidFile) as want:
+        jax_decode(encoded)
+    assert str(got.value) == str(want.value)
 
 
 def test_vbr_and_session_raise():

@@ -1,6 +1,6 @@
 """The lane-packed corpus encode of the PyTorch port (``device="cpu"``: the
-plain versions of the kernels) against the JAX package and against the
-port's own per-file encode: ``encode_corpus`` in both modes (ragged, empty
+plain versions of the kernels) against the JAX package, its corpus encode
+and its per-file ``encode_sea``: ``encode_corpus`` in both modes (ragged, empty
 and sub-chunk files, 255 channels, sfb 8, several lane groups), the search's
 per-lane valid-length form and its staged size range, the corpus cores and
 serializer, the batched VBR size rule, ``parse_file``, the stage hooks and
@@ -8,6 +8,8 @@ parameter validation. Integer codec: every comparison is exact."""
 
 from __future__ import annotations
 
+import dataclasses
+import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import jax.numpy as jnp
@@ -36,7 +38,11 @@ def _corpus(channels, lens, seed):
 
 
 def _per_file(files, channels, st):
-    return [batch.encode_sea(f, TEST_SAMPLE_RATE, channels, st, device="cpu") for f in files]
+    """The JAX package's one-file encode of each file, at the same settings:
+    the reference that the port's corpus encode (and with it the port's
+    ``encode_sea``, which is its one-file case) is held to."""
+    jst = JaxSettings(**dataclasses.asdict(st))
+    return [j_batch.encode_sea(f, TEST_SAMPLE_RATE, channels, jst) for f in files]
 
 
 @pytest.fixture
@@ -59,7 +65,7 @@ def search_calls(monkeypatch):
 def test_encode_corpus_matches_jax_and_per_file(vbr, search_calls):
     """Ragged tails, exact multiples, a sub-chunk file and an empty file in
     one corpus: byte-identical to the JAX ``encode_corpus`` and to the
-    port's per-file ``encode_sea``, in one lane group."""
+    JAX package's per-file ``encode_sea``, in one lane group."""
     rng = np.random.default_rng(11 + vbr)
     st = EncoderSettings(frames_per_chunk=500, residual_bits=2.5 if vbr else 3.0, vbr=vbr)
     lens = [int(x) for x in rng.integers(120, 1600, size=6)] + [500, 1000, 77, 0]
@@ -81,7 +87,8 @@ def test_encode_corpus_wide_and_sfb8_ride_the_lanes(channels, sfb, vbr, search_c
     """255 channels and sfb 8, which the JAX package encodes one file at a
     time, ride the lane-packed path here: one search launch a lane group
     for CBR, two a chunk index (and two for the tails) for VBR, for all
-    the files together; byte-identical to per-file ``encode_sea``."""
+    the files together; byte-identical to the JAX package's per-file
+    ``encode_sea``."""
     fpc = 40 if channels == 255 else 100
     st = EncoderSettings(frames_per_chunk=fpc, scale_factor_bits=sfb, residual_bits=2.5 if vbr else 3.0, vbr=vbr)
     lens = [3 * fpc + 7, fpc, fpc // 2, 2 * fpc + 1]
@@ -120,9 +127,9 @@ def test_encode_corpus_runs_a_group_in_slabs(monkeypatch, search_calls, vbr, sla
     """A device-memory bound of ``slab`` chunks for the lanes of one group
     (ragged tails, an exact multiple, a sub-chunk and an empty file): the
     group runs through time slab by slab, carrying the LMS state and the
-    previous scale factor, byte-identical to per-file ``encode_sea`` at
-    every pipeline depth. CBR launches once a slab; VBR twice a chunk
-    index and twice for the tails, whatever the slabs."""
+    previous scale factor, byte-identical to the JAX package's per-file
+    ``encode_sea`` at every pipeline depth. CBR launches once a slab; VBR
+    twice a chunk index and twice for the tails, whatever the slabs."""
     fpc = 100
     st = EncoderSettings(frames_per_chunk=fpc, residual_bits=2.5 if vbr else 3.0, vbr=vbr)
     lens = [530, 400, 250, 99, 0, 100]
@@ -161,7 +168,7 @@ def test_cbr_containers_written_in_place(monkeypatch, piece, writers):
     """A CBR file's container is a ``bytes`` made at the length its frames
     fix and written slab by slab on ``writers`` host threads (slabs of one
     chunk here, the staging threaded or not): every result is ``bytes`` and
-    equals per-file ``encode_sea``; a container waits for its writes and is
+    equals the JAX package's per-file ``encode_sea``; a container waits for its writes and is
     not handed out short."""
     monkeypatch.setattr(batch, "_STAGE_PIECE_BYTES", piece)
     monkeypatch.setattr(batch, "_WRITE_THREADS", writers)
@@ -179,6 +186,22 @@ def test_cbr_containers_written_in_place(monkeypatch, piece, writers):
         rows = np.arange(4993, dtype=np.int64).astype(np.uint8).reshape(1, -1)
         box.place(rows)
         assert box.done() == b"headabc" + rows.tobytes()
+
+
+def test_cbr_writers_made_once():
+    """The CBR containers' writer threads are made once a process, as the
+    staging pool is: a second call starts none and stops none, and its
+    bytes are the same."""
+    st = EncoderSettings(frames_per_chunk=100)
+    files = _corpus(2, [250, 99, 0], 4)
+    want = _per_file(files, 2, st)
+    writers = lambda: {t for t in threading.enumerate() if t.name.startswith("sea-write")}
+    assert batch.encode_corpus(files, TEST_SAMPLE_RATE, 2, st, device="cpu") == want
+    before = writers()
+    assert before and all(t.is_alive() for t in before)
+    assert batch.encode_corpus(files, TEST_SAMPLE_RATE, 2, st, device="cpu") == want
+    assert writers() == before
+    assert batch._write_pools(batch._WRITE_THREADS) is batch._write_pools(batch._WRITE_THREADS)
 
 
 def test_cbr_chunk_head_made_once():
@@ -216,7 +239,7 @@ def test_lane_groups_bound_a_slab_not_a_file():
 @pytest.mark.parametrize("vbr", [False, True])
 def test_encode_corpus_all_empty(vbr, n_files, mesh_entries, search_calls):
     """A corpus whose files are all empty: one header-only file each (22
-    bytes), equal to the port's and the JAX package's per-file
+    bytes), equal to the JAX package's per-file ``encode_sea`` and
     ``sea_encode``, with no search launch, unsharded and over a mesh of CPU
     entries. (The JAX package's ``encode_corpus`` raises ZeroDivisionError
     here in CBR, so it is not the reference.)"""

@@ -1,4 +1,4 @@
-"""Scale-factor search and whole-file CBR encode of the PyTorch port (plain
+"""Scale-factor search and the CBR encode core of the PyTorch port (plain
 versions on the CPU) against the JAX package: the Pallas search kernel in
 interpret mode (sfb <= 7, its VMEM gate) and the XLA window kernel (sfb 8),
 from mid-stream states carried over with ``sea_codec_torch.convert`` and
@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from sea_codec_torch import convert
-from sea_codec_torch.ops.encode_file import encode_file_cbr as t_encode_file
+from sea_codec_torch.ops.encode_file import corpus_cbr_scan, corpus_n_valid
 from sea_codec_torch.ops.window_search import window_search
 from sea_codec_tpu.ops import tables as j_tables
 from sea_codec_tpu.ops.device_encode import encode_windows_fn
@@ -94,15 +94,17 @@ def test_window_search_matches_jax(c, sff, sfb, rs, nw, ragged, big):
     [(2, 40, 10, 4, 3, 3), (1, 24, 8, 8, 2, 2), (3, 20, 5, 5, 6, 2)],
 )
 def test_encode_file_cbr_matches_jax(c, fpc, sff, sfb, rs, nc):
-    """Whole-file search from a mid-stream state: per-chunk entry states
-    come out of the one launch and equal the JAX chunk scan's."""
+    """Whole-file search from a mid-stream state, through the corpus core
+    with one file's lanes: per-chunk entry states come out of the one
+    launch and equal the JAX chunk scan's."""
     rng = np.random.default_rng(c * 1000 + fpc)
     x = rng.integers(-32768, 32768, (nc, fpc, c)).astype(np.int16)
     hist, wts, prev = _mid_stream_state(rng, c, big=True)
     prev %= 1 << sfb
     st = convert.encoder_state(hist, wts, prev)
-    got = t_encode_file(
-        torch.from_numpy(x), st.hist, st.wts, st.prev_sf,
+    nv = corpus_n_valid(torch.full((c,), nc * fpc), nc, fpc, sff, full_only=False)
+    got = corpus_cbr_scan(
+        torch.from_numpy(x), nv, st.hist, st.wts, st.prev_sf,
         scale_factor_frames=sff, scale_factor_bits=sfb, residual_size=rs,
     )
     want = j_encode_file(

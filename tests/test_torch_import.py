@@ -99,6 +99,33 @@ def test_new_modules_import_alone(module):
     assert out.stdout.strip() == "[]"
 
 
+def test_mesh_pipeline_does_not_load_batch():
+    """``parallel.pipeline`` stands below ``batch``: ``batch.encode_corpus``
+    and ``decode_corpus`` use the mesh, and the mesh imports nothing of
+    them, not even inside a function, so importing it alone leaves
+    ``batch`` unloaded."""
+    path = os.path.join(REPO, "sea_codec_torch", "parallel", "pipeline.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    named = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom):
+            named += [(node.module or "").split(".")] + [[a.name] for a in node.names]
+        elif isinstance(node, ast.Import):
+            named += [a.name.split(".") for a in node.names]
+    assert not [n for n in named if "batch" in n]
+    code = (
+        "import sys, sea_codec_torch.parallel.pipeline\n"
+        "print('sea_codec_torch.batch' in sys.modules)"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"
+
+
 def test_fused_gates_decide_from_the_geometry():
     """The router's gates are pure arithmetic on the chunk geometry against
     the shared memory one block may use: no GPU needed to see the decision."""

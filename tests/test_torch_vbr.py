@@ -1,7 +1,7 @@
 """VBR round trip of the PyTorch port (``device="cpu"``: the plain versions
 of the kernels) against the JAX package: the host rate helpers, the
 scale-factor search with per-(window, channel) sizes and in its ranks-only
-form, the whole-file two-pass encode, the VBR decode (against the JAX fused
+form, the two-pass encode core on one file, the VBR decode (against the JAX fused
 Pallas kernel in interpret mode and its XLA path at 255 channels), seeded
 ``sea_encode``/``sea_decode`` round trips, and streams written with the
 reference's delta anchor. Integer codec: every comparison is exact."""
@@ -15,12 +15,13 @@ import numpy as np
 import pytest
 import torch
 from test_fixtures import ANCHOR_MATRIX, anchored_matrix_stream
+from test_torch_api import assert_both_reject
 
 from sea_codec_torch import EncoderSettings, convert, sea_decode, sea_encode
 from sea_codec_torch.batch import decode_sea, parse_full_chunks, split_chunks
 from sea_codec_torch.models import vbr as t_vbr
 from sea_codec_torch.ops import bitpack as t_bitpack
-from sea_codec_torch.ops.encode_file import encode_file_vbr as t_encode_file_vbr
+from sea_codec_torch.ops.encode_file import corpus_n_valid, corpus_vbr_scan
 from sea_codec_torch.ops.fused_decode_vbr import decode_vbr_fused
 from sea_codec_torch.ops.window_search import window_search
 from sea_codec_tpu import EncoderSettings as JaxSettings
@@ -159,7 +160,9 @@ def test_encode_file_vbr_matches_jax(c, fpc, sff, sfb, rb, nc):
     m1, _t, p1, p2 = t_vbr.interpolate_distribution(fpc * c // sff, target)
     st = convert.encoder_state(hist, wts, prev)
     kw = dict(scale_factor_frames=sff, scale_factor_bits=sfb, base=base, dist=(m1, p1, p2))
-    got = t_encode_file_vbr(torch.from_numpy(x), st.hist, st.wts, st.prev_sf, **kw)
+    # one file of nc full chunks: the corpus core with its one file's lanes
+    nv = corpus_n_valid(torch.full((c,), nc * fpc), nc, fpc, sff, full_only=True)
+    got = corpus_vbr_scan(torch.from_numpy(x), nv, st.hist, st.wts, st.prev_sf, n_files=1, **kw)
     want = j_encode_file_vbr(
         jnp.asarray(x), jnp.asarray(hist), jnp.asarray(wts), jnp.asarray(prev),
         use_pallas=False, **kw,
@@ -248,6 +251,8 @@ def test_vbr_plain_cleans_malformed_tables(sfb, bad_size):
         (1, 200, 64, 4, 4, 4.0),  # high overhead: anchor base+1 < floor(rb)
         (2, 120, 40, 20, 8, 3.5),  # sfb 8
         (3, 150, 60, 20, 6, 2.5),  # 3 channels
+        (2, 0, 96, 16, 4, 2.5),  # empty: the header alone
+        (2, 37, 96, 16, 4, 2.5),  # the tail chunk alone
     ],
 )
 def test_seeded_vbr_round_trip_matches_jax(channels, frames, fpc, sff, sfb, rb):
@@ -258,6 +263,9 @@ def test_seeded_vbr_round_trip_matches_jax(channels, frames, fpc, sff, sfb, rb):
     )
     encoded = sea_encode(sig, 44100, channels, EncoderSettings(**kw), device="cpu")
     assert encoded == jax_encode(sig, 44100, channels, JaxSettings(**kw))
+    if not frames:  # a header with chunk_size 0, which both decoders reject
+        assert_both_reject(encoded)
+        return
     out = sea_decode(encoded, device="cpu")
     np.testing.assert_array_equal(out.samples, jax_decode(encoded).samples)
     assert out.samples.shape == (frames * channels,)
