@@ -2,9 +2,12 @@
 path.
 
 A ``.sea`` file is a fixed-size-chunk container, so every full chunk of a
-file has an *identical* byte layout. Decode: the host slices the container
-(LMS i16 views, small scale-factor and size unpacks); the packed residual
-bytes go to the device untouched, and each batch of chunks goes through
+file has an *identical* byte layout. Decode: the host parses the container
+(``parse_full_chunks``: LMS i16 views, small scale-factor and size unpacks)
+for ``decode_sea`` and ``decode_range``, while ``decode_corpus`` sends the
+full chunks' rows to the card as they are on the wire and parses them there
+(``ops.parse_device``); the packed residual bytes are never unpacked before
+the kernel, and each batch of chunks goes through
 ``ops.device_decode.decode_chunks_packed``: one fused kernel launch that
 unpacks, dequantizes and runs the LMS recurrence for all chunks x channels
 (``ops.fused_decode`` for CBR, ``ops.fused_decode_vbr`` for VBR), or, with
@@ -32,6 +35,7 @@ Output is byte-identical to ``sea_codec_tpu.batch``.
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import ctypes
 import functools
@@ -40,6 +44,7 @@ import mmap
 import os
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -66,6 +71,7 @@ from .ops.encode_file import (
     vbr_sizes_rows,
 )
 from .ops.lms import initial_history as lms_init_history, initial_weights as lms_init_weights
+from .ops.parse_device import parse_chunks_cbr_device, parse_chunks_vbr_device
 from .ops import serialize_device
 from .ops.serialize_device import cbr_chunk_size, corpus_rows_vbr_device, vbr_chunk_size
 from .ops.window_search import window_search
@@ -78,20 +84,24 @@ _PACK_BLOCK_ROWS = 64  # chunks per numpy VBR residual pack; the bytes do not de
 
 # Optional pipeline attribution: when a caller installs a ``StageTimes``
 # here, the corpus pipelines record where wall-clock goes --
-# ``encode_stage``/``decode_parse`` (host CPU: staging, container parse),
-# ``decode_tails`` (the tail rows' host repack), ``decode_stage`` (host
-# concatenation of a group's arrays), ``encode_put``/``decode_put`` (the
-# host's part of the upload: pinning, enqueue, a pageable copy),
-# ``encode_search`` (the host's enqueue of a slab's search),
-# ``encode_fetch``/``decode_fetch`` (waiting for the card's work not yet
-# done and the device->host download), ``encode_assemble``/
-# ``decode_assemble`` (host CPU: container serialize / PCM reassembly) and
-# ``encode_pack`` (VBR: the host's enqueue of a slab's device row
-# serializer), ``*_put_bytes``/``*_fetch_bytes``, the bytes moved,
-# ``encode_search_launches_count``, the search's kernel launches,
-# ``encode_search_lanes_count``, the lanes of those launches, and
+# ``encode_stage`` (host CPU: a slab's staging), ``decode_parse`` (host
+# CPU: the files' headers, row checks and tail chunks, and the enqueue of
+# each batch's upload and parse on the card, ``decode_stage`` and the
+# upload's ``decode_put`` included), ``decode_tails`` (the tail rows' host
+# repack), ``decode_stage`` (the copy of a group's full-chunk rows into one
+# pinned host buffer), ``encode_put``/``decode_put`` (the host's part of
+# the upload: pinning, enqueue), ``encode_search`` (the host's enqueue of a
+# slab's search), ``encode_fetch``/``decode_fetch`` (waiting for the
+# card's work not yet done and the device->host download; for decode also
+# the one readback of the card's VBR size-table checks),
+# ``encode_assemble``/``decode_assemble`` (host CPU: container serialize /
+# PCM reassembly) and ``encode_pack`` (VBR: the host's enqueue of a slab's
+# device row serializer), ``*_put_bytes``/``*_fetch_bytes``, the bytes
+# moved, ``encode_search_launches_count``, the search's kernel launches,
+# ``encode_search_lanes_count``, the lanes of those launches,
 # ``encode_serialize_launches_count`` (VBR), the row serializer's kernel
-# launches; and
+# launches, and ``decode_card_rows_count``, the full-chunk rows parsed on
+# the card; and
 # ``decode_range`` records ``range_split`` (header read and body slicing),
 # ``range_parse`` (host parse of the touched chunks) and ``range_decode``
 # (upload, launch, download and the wait for the card). Each stage is also
@@ -141,9 +151,30 @@ class ParsedBatch:
         return self.res_bytes, self.sf, self.rs, self.hist, self.wts
 
 
-def parse_full_chunks(body: np.ndarray, header: SeaFileHeader) -> ParsedBatch:
-    """Parse [N, chunk_size] full-chunk bytes; residuals stay packed."""
-    n = body.shape[0]
+class RowLayout(NamedTuple):
+    """The sections of a file's full-chunk rows, as its header and the
+    config its chunks share fix them (``full_chunk_layout``)."""
+
+    chunk_type: int
+    sfb: int
+    sff: int
+    residual_size: int  # the chunk config's: CBR's width, VBR's size-table anchor
+    w: int  # scale-factor windows a chunk
+    sf_end: int  # where the scale factors end (VBR: the size deltas begin)
+    res_off: int  # where the residual section begins
+    res_width: int  # its bytes: CBR's packed length, VBR's rest of the row
+
+    @property
+    def const_width(self) -> int:
+        """The residual width a decode takes: CBR's, 0 for VBR."""
+        return 0 if self.chunk_type == CHUNK_TYPE_VBR else self.residual_size
+
+
+def full_chunk_layout(body: np.ndarray, header: SeaFileHeader) -> RowLayout:
+    """Check [N, chunk_size] full-chunk bytes against their header and the
+    config their chunks share, and give their sections: the checks of
+    ``parse_full_chunks`` that read no more than a row's first three bytes.
+    A VBR row's size table is checked where it is parsed."""
     c = header.channels
     fpc = header.frames_per_chunk
 
@@ -162,58 +193,85 @@ def parse_full_chunks(body: np.ndarray, header: SeaFileHeader) -> ParsedBatch:
     if not 1 <= sfb <= 8 or not 1 <= residual_size <= 8 or sff == 0:
         raise SeaInvalidFrame("bad chunk config")
 
-    pos = 4
-    lms_bytes = c * 16
     # corrupt headers can declare a chunk_size smaller than the sections the
-    # chunk config implies; a clipped slice would crash the reshape/view
-    # below instead of rejecting (same checks as SeaChunk.from_bytes)
-    if body.shape[1] < pos + lms_bytes:
+    # chunk config implies; a clipped slice would crash a parse's
+    # reshape/view instead of rejecting (same checks as SeaChunk.from_bytes)
+    pos = 4 + c * 16
+    if body.shape[1] < pos:
         raise SeaInvalidFrame("chunk too short for LMS state")
+    w = -(-fpc // sff)
+    sf_items = scale_factor_items(fpc, sff, c)
+    pos += bitpack.packed_byte_len(sfb, sf_items)
+    if body.shape[1] < pos:
+        raise SeaInvalidFrame("chunk too short for scale factors")
+    sf_end = pos
+
+    if chunk_type == CHUNK_TYPE_VBR:
+        pos += bitpack.packed_byte_len(2, sf_items)
+        if body.shape[1] < pos:
+            raise SeaInvalidFrame("chunk too short for vbr sizes")
+        res_width = body.shape[1] - pos
+    else:
+        res_width = bitpack.packed_byte_len(residual_size, fpc * c)
+        if body.shape[1] < pos + res_width:
+            raise SeaInvalidFrame("chunk too short for residuals")
+    return RowLayout(chunk_type, sfb, sff, residual_size, w, sf_end, pos, res_width)
+
+
+def parse_full_chunks(body: np.ndarray, header: SeaFileHeader) -> ParsedBatch:
+    """Parse [N, chunk_size] full-chunk bytes on the host; residuals stay
+    packed."""
+    lay = full_chunk_layout(body, header)
+    n = body.shape[0]
+    c = header.channels
+    fpc = header.frames_per_chunk
+    w, sff = lay.w, lay.sff
+
     lms = (
-        np.ascontiguousarray(body[:, pos : pos + lms_bytes])
+        np.ascontiguousarray(body[:, 4 : 4 + c * 16])
         .view("<i2")
         .reshape(n, c, 8)
         .astype(np.int32)
     )
     hist, wts = lms[:, :, :4], lms[:, :, 4:]
-    pos += lms_bytes
-
-    w = -(-fpc // sff)
-    sf_items = scale_factor_items(fpc, sff, c)
-    sf_bytes = bitpack.packed_byte_len(sfb, sf_items)
-    if body.shape[1] < pos + sf_bytes:
-        raise SeaInvalidFrame("chunk too short for scale factors")
-    sf = bitpack.unpack_bits_rows(body[:, pos : pos + sf_bytes], sfb, sf_items)
+    sf_items = w * c
+    sf = bitpack.unpack_bits_rows(body[:, 4 + c * 16 : lay.sf_end], lay.sfb, sf_items)
     sf = sf.reshape(n, w, c)
-    pos += sf_bytes
 
-    if chunk_type == CHUNK_TYPE_VBR:
-        vbr_bytes = bitpack.packed_byte_len(2, sf_items)
-        if body.shape[1] < pos + vbr_bytes:
-            raise SeaInvalidFrame("chunk too short for vbr sizes")
-        deltas = bitpack.unpack_bits_rows(body[:, pos : pos + vbr_bytes], 2, sf_items)
-        rs = (deltas.astype(np.int32) + residual_size - 1).astype(np.uint8).reshape(n, w, c)
-        pos += vbr_bytes
+    if lay.chunk_type == CHUNK_TYPE_VBR:
+        deltas = bitpack.unpack_bits_rows(body[:, lay.sf_end : lay.res_off], 2, sf_items)
+        rs = (deltas.astype(np.int32) + lay.residual_size - 1).astype(np.uint8).reshape(n, w, c)
         if np.any((rs < 1) | (rs > 8)):
-            raise SeaInvalidFrame("bad vbr residual size")
+            raise SeaInvalidFrame(_VBR_FAULTS[2])
         # per-chunk residual bytes implied by the size table (full chunks:
         # every window has sff frames except a shorter last one)
         wframes = np.full(w, sff, dtype=np.int64)
         wframes[-1] = fpc - (w - 1) * sff
         res_need = -(-(rs.astype(np.int64) * wframes[None, :, None]).sum(axis=(1, 2)) // 8)
-        if int(res_need.max(initial=0)) > body.shape[1] - pos:
-            raise SeaInvalidFrame("chunk too short for residuals")
-        res_bytes = np.ascontiguousarray(body[:, pos:])
-        const_width = 0
+        if int(res_need.max(initial=0)) > lay.res_width:
+            raise SeaInvalidFrame(_VBR_FAULTS[1])
     else:
-        rs = np.full((n, w, c), residual_size, dtype=np.uint8)
-        nbytes = bitpack.packed_byte_len(residual_size, fpc * c)
-        if body.shape[1] < pos + nbytes:
-            raise SeaInvalidFrame("chunk too short for residuals")
-        res_bytes = np.ascontiguousarray(body[:, pos : pos + nbytes])
-        const_width = residual_size
+        rs = np.full((n, w, c), lay.residual_size, dtype=np.uint8)
+    res_bytes = np.ascontiguousarray(body[:, lay.res_off : lay.res_off + lay.res_width])
+    return ParsedBatch(res_bytes, sf, rs, hist, wts, lay.sfb, sff, lay.const_width, lay.chunk_type)
 
-    return ParsedBatch(res_bytes, sf, rs, hist, wts, sfb, sff, const_width, chunk_type)
+
+# the faults of a VBR row's size table by their code in _vbr_row_faults,
+# with parse_full_chunks's texts; a size outside 1..8 is checked first
+_VBR_FAULTS = {2: "bad vbr residual size", 1: "chunk too short for residuals"}
+
+
+def _vbr_row_faults(rs: torch.Tensor, sff: int, frames: int, width: int) -> torch.Tensor:
+    """``parse_full_chunks``'s checks of VBR size tables parsed on the card:
+    ``rs`` uint8[N, W, C] -> int32[N], 2 where a row has a size outside
+    1..8, else 1 where its sizes need more residual bytes than ``width``,
+    else 0 (``_VBR_FAULTS``). No check waits for the card."""
+    r = rs.to(torch.int32)
+    bad = ((r < 1) | (r > 8)).flatten(1).any(1)
+    # every window holds sff frames but the last, which holds what is left
+    bits = r.sum((1, 2)) * sff - r[:, -1].sum(1) * (sff * rs.shape[1] - frames)
+    short = (bits + 7) // 8 > width
+    return torch.maximum(bad.to(torch.int32) * 2, short.to(torch.int32))
 
 
 def split_chunks(encoded: bytes):
@@ -401,15 +459,33 @@ def decode_corpus(
 ) -> list[SeaDecodeInfo | None]:
     """Decode many .sea files, each bit-identical to ``decode_sea``.
 
-    Files sharing a configuration (chunk geometry, channels, mode) are merged
-    into shared batches of at most ``device_batch`` chunks, so a corpus of
-    like files decodes in a handful of launches. Ragged tail chunks ride the
-    same batches: each tail becomes a full-chunk row (``_tail_packed_row``)
-    in its file's group; tails with no matching group (tail-only files) form
-    a group of their own at the full-chunk width (~490 KB a row at 255
-    channels), which the fused kernels stream tile by tile like any other
+    Files sharing a configuration (chunk geometry, channels, mode; for VBR
+    the size table's anchor too) are merged into shared batches of at most
+    ``device_batch`` chunks, so a corpus of like files decodes in a handful
+    of launches.
+
+    The card parses the full chunks. The host reads each file's header,
+    checks its full chunks against it (``full_chunk_layout``, which reads a
+    row's first three bytes) and parses its tail chunk, and nothing more of
+    a full chunk: a group's rows, as they are on the wire, are copied once
+    into one pinned host buffer, and each launch batch's rows go up on a
+    side stream and are parsed on the card (``ops.parse_device``) just
+    before their launch. The card checks each VBR row's size table
+    (``_vbr_row_faults``) into one fault code a file, read back once, after
+    the last drain; a bad table decodes safely until then (the VBR kernels
+    clamp its sizes and their byte indices to the row), and its file then
+    raises ``parse_full_chunks``'s text or, with ``on_error="skip"``, gives
+    None.
+
+    Ragged tail chunks ride the same batches: each tail becomes a
+    full-chunk row (``_tail_packed_row``) in its file's group, its parsed
+    arrays joined to the card-parsed rows of the batch it falls in; tails
+    with no matching group (tail-only files) form a group of their own at
+    the full-chunk width (~490 KB a row at 255 channels), which the fused
+    kernels stream tile by tile like any other
     (``ops.device_decode.decode_chunks_packed``). Launches do not wait for
-    the card, so the host stages one batch while the card decodes the last.
+    the card, so the host enqueues one batch while the card decodes the
+    last.
 
     Decoded PCM stays on the device until it is drained to the host: once,
     after the last launch, unless the live PCM would exceed
@@ -425,15 +501,20 @@ def decode_corpus(
     ``decode_tails``, ``decode_stage``, ``decode_put``, ``decode_fetch`` and
     ``decode_assemble`` and the ``decode_put_bytes``/``decode_fetch_bytes``
     counters are recorded, as in the JAX package, each stage also a
-    profiler range. ``decode_put`` is the host's part of the upload (a
-    pageable copy's staging and enqueue): no stage synchronizes the card.
+    profiler range, and besides the counter ``decode_card_rows_count``, the
+    full-chunk rows parsed on the card. ``decode_parse`` holds the whole
+    parse: the files' headers, checks and tails, the staging of the rows
+    (``decode_stage``) and the enqueue of each batch's upload
+    (``decode_put``, the host's part of it) and card parse. No stage
+    synchronizes the card.
 
     ``mesh``: a ``parallel.pipeline.Mesh`` of more than one entry splits
-    each launch batch into ``mesh.size`` contiguous row ranges, each decoded
-    on its entry's device and stream (every chunk carries its own LMS entry
-    state, so the ranges need nothing from each other), then drained in
-    order; ``device`` must then be None. A mesh of one entry is the
-    unsharded path on that entry's device. PCM is identical either way.
+    each launch batch into ``mesh.size`` contiguous row ranges, each
+    uploaded, parsed and decoded on its entry's device and stream (every
+    chunk carries its own LMS entry state, so the ranges need nothing from
+    each other), then drained in order; ``device`` must then be None. A
+    mesh of one entry is the unsharded path on that entry's device. PCM is
+    identical either way.
 
     Not carried over from the JAX package: the padding of a batch to a
     whole number of shards (it exists for SPMD shapes), the thread pool
@@ -446,24 +527,25 @@ def decode_corpus(
     if device_batch < 1:
         raise ValueError(f"device_batch must be >= 1, got {device_batch}")
     entries = _entries(mesh, device)
+    xfers = [_Transfers(shard.device, "decode") for shard in entries]
     staged: list[tuple | None] = []
     with _pt("decode_parse"):
         for encoded in files:
             if on_error == "skip":
                 try:
-                    staged.append(_stage_file_parsed(encoded))
+                    staged.append(_stage_file(encoded))
                 except Exception:  # any malformed file is reported, not raised
                     staged.append(None)
             else:
-                staged.append(_stage_file_parsed(encoded))
+                staged.append(_stage_file(encoded))
 
-    # group same-config full-chunk batches into shared device batches
-    groups: dict[tuple, list[tuple[int, ParsedBatch]]] = {}
+    # group same-config full-chunk rows into shared device batches
+    groups: dict[tuple, list[tuple[int, np.ndarray]]] = {}
     for fi, item in enumerate(staged):
         if item is None or item[1] is None:
             continue
-        header, batch, _frames_real, _tail_chunk, fpc = item
-        groups.setdefault(_group_key(fpc, header.channels, batch), []).append((fi, batch))
+        header, rows, lay, _tail_chunk, fpc = item
+        groups.setdefault(_group_key(fpc, header.channels, lay), []).append((fi, rows))
     with _pt("decode_tails"):
         tails_by_key = _merge_tail_rows(staged, groups)
 
@@ -473,6 +555,8 @@ def decode_corpus(
     fetched: list[np.ndarray] = []
     live_bytes = 0
     group_outs: list[tuple] = []
+    # (shard, file, fault code of the file's VBR rows in one batch) on the card
+    faults: list[tuple] = []
 
     def drain():
         got = []
@@ -485,32 +569,52 @@ def decode_corpus(
         pending.clear()
 
     for key, members in groups.items():
-        fpc, c, sff, sfb, residual_size, bw, _w = key
+        fpc, c, sff, sfb, residual_size, bw, _w, anchor = key
+        parse = parse_chunks_cbr_device if residual_size else parse_chunks_vbr_device
         tails = tails_by_key.get(key, ())
-        with _pt("decode_stage"):
-            fields = [b.arrays for _fi, b in members]
+        starts = np.cumsum([0] + [r.shape[0] for _fi, r in members]).tolist()  # each file's first row
+        n_full = starts[-1]
+        with _pt("decode_parse"), _pt("decode_stage"):
+            host_rows = None
+            if n_full:
+                host_rows = xfers[0].stage([r.reshape(-1) for _fi, r in members], torch.uint8).view(n_full, -1)
             if tails:
                 t_res = np.zeros((len(tails), bw), np.uint8)
                 for j, t in enumerate(tails):
                     t_res[j, : t[1].shape[0]] = t[1]
-                fields.append((t_res, *(np.stack([t[k] for t in tails]) for k in (2, 3, 4, 5))))
-            arrays = [np.concatenate(p) for p in zip(*fields)]
-        cfg = ParsedBatch(*arrays, sfb, sff, residual_size, None)
-        n = arrays[0].shape[0]
+                tail_arrays = [t_res, *(np.stack([t[k] for t in tails]) for k in (2, 3, 4, 5))]
+        n = n_full + len(tails)
         n_outs = 0
         for start in range(0, n, device_batch):
             stop = min(start + device_batch, n)
-            for shard, (lo, hi) in zip(entries, row_ranges(stop - start, len(entries))):
+            for shard, xfer, (lo, hi) in zip(entries, xfers, row_ranges(stop - start, len(entries))):
                 if lo == hi:
                     continue
-                sl = slice(start + lo, start + hi)
+                a, b = start + lo, start + hi
                 with shard.on():
-                    with _pt("decode_put"):
-                        args = _upload([a[sl] for a in arrays], shard.device, not residual_size)
-                    _add_bytes("decode_put_bytes", args)
+                    with _pt("decode_parse"):
+                        parts = []
+                        if a < n_full:  # full rows: parsed on the card
+                            e = min(b, n_full)
+                            (up,) = xfer.put([host_rows[a:e]])
+                            res, sf, rs, hist, wts = parse(up, c, sfb, sff, anchor, fpc)
+                            parts.append((res[:, :bw], sf, rs, hist, wts))
+                            _count("decode_card_rows_count", e - a)
+                            if not residual_size:
+                                code = _vbr_row_faults(rs, sff, fpc, bw)
+                                k = bisect.bisect_right(starts, a) - 1
+                                while starts[k] < e:
+                                    f0, f1 = max(a, starts[k]), min(e, starts[k + 1])
+                                    faults.append((shard, members[k][0], code[f0 - a : f1 - a].amax()))
+                                    k += 1
+                        if b > n_full:  # tail rows: parsed on the host
+                            t0, t1 = max(a, n_full) - n_full, b - n_full
+                            parts.append(xfer.put([t[t0:t1] for t in tail_arrays]))
+                        args = parts[0] if len(parts) == 1 else [torch.cat(p) for p in zip(*parts)]
                     # pending holds the only reference to each output, so a
                     # drain releases its device memory
-                    pending.append((shard, _decode_batch(cfg, args, slice(None), fpc)))
+                    pending.append((shard, decode_chunks_packed(
+                        *args, sfb=sfb, sff=sff, frames=fpc, residual_size=residual_size)))
                 n_outs += 1
                 live_bytes += pending[-1][1].numel() * 2
             if live_bytes >= max_live:
@@ -518,6 +622,12 @@ def decode_corpus(
                 live_bytes = 0
         group_outs.append((members, tails, n_outs))
     drain()
+    with _pt("decode_fetch"):
+        bad = _read_faults(faults)
+    for fi in sorted(bad):
+        if on_error == "raise":
+            raise SeaInvalidFrame(_VBR_FAULTS[bad[fi]])
+        staged[fi] = None
 
     with _pt("decode_assemble"):
         it = iter(fetched)
@@ -526,14 +636,31 @@ def decode_corpus(
         for members, tails, n_outs in group_outs:
             pcm = np.concatenate([next(it) for _ in range(n_outs)])  # [n, fpc, c]
             pos = 0
-            for fi, b in members:
-                cnt = b.res_bytes.shape[0]
+            for fi, rows in members:
+                cnt = rows.shape[0]
                 pcm_parts[fi] = pcm[pos : pos + cnt]
                 pos += cnt
             for fi, _sec, _sf, _rs, _h, _w2, f in tails:
                 tail_pcm[fi] = pcm[pos, :f].reshape(-1)
                 pos += 1
         return _decode_corpus_results(staged, pcm_parts, tail_pcm, on_error)
+
+
+def _read_faults(faults) -> dict[int, int]:
+    """{file: fault code} of the files whose VBR size tables failed the
+    card's checks (``_vbr_row_faults``), from ``decode_corpus``'s (shard,
+    file, code) list: one readback an entry."""
+    by_shard: dict[Shard, list] = {}
+    for shard, fi, code in faults:
+        by_shard.setdefault(shard, []).append((fi, code))
+    bad: dict[int, int] = {}
+    for shard, items in by_shard.items():
+        with shard.on():
+            codes = torch.stack([code for _fi, code in items]).cpu().tolist()
+        for (fi, _t), code in zip(items, codes):
+            if code:
+                bad[fi] = max(bad.get(fi, 0), code)
+    return bad
 
 
 def _entries(mesh, device) -> list[Shard]:
@@ -547,12 +674,10 @@ def _entries(mesh, device) -> list[Shard]:
     return shards(mesh) if mesh.size > 1 else [Shard(mesh.flat[0], own_stream=False)]
 
 
-def _group_key(fpc: int, c: int, batch: ParsedBatch) -> tuple:
-    """What chunks must share to decode in one batch."""
-    return (
-        fpc, c, batch.scale_factor_frames, batch.scale_factor_bits, batch.residual_size,
-        batch.res_bytes.shape[1], batch.sf.shape[1],
-    )
+def _group_key(fpc: int, c: int, lay: RowLayout) -> tuple:
+    """What full chunks must share to decode in one batch, and for their
+    parse on the card, a VBR size table's anchor."""
+    return (fpc, c, lay.sff, lay.sfb, lay.const_width, lay.res_width, lay.w, lay.residual_size)
 
 
 def _decode_corpus_results(staged, pcm_parts, tail_pcm, on_error):
@@ -561,16 +686,10 @@ def _decode_corpus_results(staged, pcm_parts, tail_pcm, on_error):
         if item is None:
             results.append(None)
             continue
-        header, batch, frames_real, tail_chunk, fpc = item
+        header, rows, _lay, tail_chunk, _fpc = item
         parts = []
-        if batch is not None:
-            pcm = pcm_parts[fi]
-            n = pcm.shape[0]
-            if frames_real[n - 1] == fpc:
-                parts.append(pcm.reshape(-1))
-            else:
-                parts.append(pcm[:-1].reshape(-1))
-                parts.append(pcm[-1, : frames_real[n - 1]].reshape(-1))
+        if rows is not None:
+            parts.append(pcm_parts[fi].reshape(-1))  # split_chunks: every full row holds fpc frames
         if tail_chunk is not None:
             parts.append(tail_pcm[fi])
         samples = np.concatenate(parts) if parts else np.zeros(0, dtype=np.int16)
@@ -617,18 +736,19 @@ def _tail_packed_row(chunk: SeaChunk, c: int, fpc: int):
 def _merge_tail_rows(staged, groups: dict[tuple, list]) -> dict[tuple, list[tuple]]:
     """Assign every staged file's ragged tail a packed row in a config group.
 
-    A tail whose file has a full-chunk batch of matching config (and whose
+    A tail whose file has full-chunk rows of matching config (and whose
     section fits the group's byte width -- always, for CBR; for VBR a
     pathological tiny-chunk config could overflow) joins that group's key.
     The rest (tail-only files, overflow) get natural-width groups: the exact
     full-chunk byte width for CBR, the longest section rounded up to 64 for
-    VBR (keyed into ``groups`` so the caller decodes them like any group)."""
+    VBR (keyed into ``groups`` so the caller decodes them like any group;
+    such a group has no full rows, so its key's anchor is CBR's width or 0)."""
     tails_by_key: dict[tuple, list[tuple]] = {}
     pend: dict[tuple, list[tuple]] = {}
     for fi, item in enumerate(staged):
         if item is None:
             continue
-        header, batch, _fr, chunk, fpc = item
+        header, _rows, lay, chunk, fpc = item
         if chunk is None:
             continue
         c = header.channels
@@ -637,14 +757,14 @@ def _merge_tail_rows(staged, groups: dict[tuple, list]) -> dict[tuple, list[tupl
         wp = sf.shape[0]
         rec = (fi, sec, sf, rs, chunk.lms_history, chunk.lms_weights, f)
         if (
-            batch is not None
-            and batch.scale_factor_frames == chunk.scale_factor_frames
-            and batch.scale_factor_bits == chunk.scale_factor_bits
-            and batch.residual_size == cw
-            and batch.sf.shape[1] == wp
-            and sec.shape[0] <= batch.res_bytes.shape[1]
+            lay is not None
+            and lay.sff == chunk.scale_factor_frames
+            and lay.sfb == chunk.scale_factor_bits
+            and lay.const_width == cw
+            and lay.w == wp
+            and sec.shape[0] <= lay.res_width
         ):
-            tails_by_key.setdefault(_group_key(fpc, c, batch), []).append(rec)
+            tails_by_key.setdefault(_group_key(fpc, c, lay), []).append(rec)
         else:
             pkey = (fpc, c, chunk.scale_factor_frames, chunk.scale_factor_bits, cw, wp)
             pend.setdefault(pkey, []).append(rec)
@@ -653,35 +773,28 @@ def _merge_tail_rows(staged, groups: dict[tuple, list]) -> dict[tuple, list[tupl
             bw = bitpack.packed_byte_len(cw, fpc * c)
         else:
             bw = max(64, -(-max(r[1].shape[0] for r in lst) // 64) * 64)
-        key = (fpc, c, sff, sfb, cw, bw, wp)
+        key = (fpc, c, sff, sfb, cw, bw, wp, cw)
         tails_by_key.setdefault(key, []).extend(lst)
         groups.setdefault(key, [])
     return tails_by_key
 
 
-def _stage_file_parsed(encoded: bytes):
-    """Host-side parse of one corpus file: (header, ParsedBatch|None,
-    frames_real, tail SeaChunk|None, fpc). Tail chunks are only parsed here;
-    ``decode_corpus`` decodes every file's tail in its config group's
-    batches."""
+def _stage_file(encoded: bytes):
+    """The host's part of one corpus file: (header, its full-chunk rows
+    uint8[N, chunk_size] as on the wire (a view of ``encoded``) | None,
+    their ``RowLayout`` | None, tail SeaChunk | None, fpc). The rows are
+    checked here (``full_chunk_layout``) and parsed on the card; the tail
+    chunk is parsed here, and ``decode_corpus`` decodes every file's tail
+    in its config group's batches."""
     header, rect, tail = split_chunks(encoded)
     fpc = header.frames_per_chunk
-    batch = None
-    frames_real = None
-    if rect is not None:
-        batch = parse_full_chunks(rect, header)
-        n = rect.shape[0]
-        frames_real = np.full(n, fpc, dtype=np.int64)
-        if header.total_frames > 0:
-            frames_real = np.minimum(
-                frames_real, header.total_frames - np.arange(n, dtype=np.int64) * fpc
-            )
+    lay = None if rect is None else full_chunk_layout(rect, header)
     tail_chunk = None
     if tail:
         n_full = rect.shape[0] if rect is not None else 0
         remaining = header.total_frames - n_full * fpc if header.total_frames > 0 else None
         tail_chunk = SeaChunk.from_bytes(tail, header, remaining)
-    return (header, batch, frames_real, tail_chunk, fpc)
+    return (header, rect, lay, tail_chunk, fpc)
 
 
 def _check_chunk_size(n: int) -> None:
@@ -908,10 +1021,13 @@ def _slabs(fr: list[int], c: int, fpc: int, full_only: bool) -> list[tuple[int, 
 class _Transfers:
     """Uploads on a side stream and downloads into pinned host memory on
     another, so that one lane group's upload and download overlap another
-    group's search on the compute stream. On the CPU, plain tensors."""
+    group's search on the compute stream. On the CPU, plain tensors.
+    ``kind`` names the corpus path whose stages they record: ``encode``
+    or ``decode``."""
 
-    def __init__(self, dev):
+    def __init__(self, dev, kind: str = "encode"):
         self.dev = dev
+        self.kind = kind
         self.cuda = dev.type == "cuda"
         if self.cuda:
             self.up = torch.cuda.Stream(dev)
@@ -937,7 +1053,7 @@ class _Transfers:
     def put(self, arrays):
         """Host tensors or numpy arrays -> tensors on the device, the
         compute stream waiting for them."""
-        with _pt("encode_put"):
+        with _pt(f"{self.kind}_put"):
             outs = hosts = [a if torch.is_tensor(a) else torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
             if self.cuda:
                 compute = torch.cuda.current_stream(self.dev)
@@ -947,7 +1063,7 @@ class _Transfers:
                 compute.wait_stream(self.up)
                 for t in outs:
                     t.record_stream(compute)
-        _add_bytes("encode_put_bytes", hosts)
+        _add_bytes(f"{self.kind}_put_bytes", hosts)
         return outs
 
     def get(self, tensors):
@@ -964,11 +1080,11 @@ class _Transfers:
                 done.record(self.down)
 
         def wait():
-            with _pt("encode_fetch"):
+            with _pt(f"{self.kind}_fetch"):
                 if done is not None:
                     done.synchronize()
                 got = [h.numpy() for h in hosts]
-            _add_bytes("encode_fetch_bytes", got)
+            _add_bytes(f"{self.kind}_fetch_bytes", got)
             return got
 
         return wait

@@ -1,8 +1,10 @@
 """``decode_range`` and ``decode_corpus`` of the PyTorch port
 (``device="cpu"``) against the JAX package's functions: tail-only files, a
 ragged mix, several configurations in one corpus, ``on_error="skip"``, the
-wave drain, and both routings of the decode. Mirrors the JAX package's
-tail-merge and batch tests. Integer codec: exact equality."""
+wave drain, both routings of the decode, corrupt full chunks refused with
+the host parser's texts, and full chunks parsed on the card alone. Mirrors
+the JAX package's tail-merge and batch tests. Integer codec: exact
+equality."""
 
 from __future__ import annotations
 
@@ -13,7 +15,9 @@ import torch
 from sea_codec_torch import EncoderSettings, batch, convert, sea_decode, sea_encode
 from sea_codec_torch.ops import dequant, fused_decode
 from sea_codec_torch.ops.device_decode import decode_chunks_packed
+from sea_codec_torch.parallel import pipeline
 from sea_codec_torch.utils.errors import SeaInvalidFrame
+from sea_codec_torch.utils.profiling import StageTimes
 from sea_codec_torch.utils.signal import TEST_SAMPLE_RATE, varied_signal
 from sea_codec_tpu import batch as j_batch
 
@@ -154,7 +158,7 @@ def test_merged_tail_rows_match_jax_rows():
     section as on the wire where the JAX package repacks the codes."""
     for vbr in (False, True):
         enc = _encode(2, 317, _st(vbr))
-        _h, _b, _fr, chunk, fpc = batch._stage_file_parsed(enc)
+        _h, _rows, _lay, chunk, fpc = batch._stage_file(enc)
         j_chunk = j_batch._stage_file_parsed(enc)[3]
         got = batch._tail_packed_row(chunk, 2, fpc)
         want = j_batch._tail_packed_row(j_chunk, 2, fpc)
@@ -181,3 +185,93 @@ def test_parsed_concat_and_convert_match_jax():
     np.testing.assert_array_equal(pcm.numpy().reshape(-1), want[: 300 * 2])
     with pytest.raises(SeaInvalidFrame):
         batch.parsed_concat([encs[1]])
+
+
+def _rows_file(enc, chunk_size=None, mutate=None):
+    """``enc``'s full chunks (it has no tail) in a file whose header
+    declares ``chunk_size`` (each row cut to it), with ``mutate(rows,
+    layout)`` applied to a writable copy of the rows."""
+    header, rect, tail = batch.split_chunks(enc)
+    assert not tail
+    lay = batch.full_chunk_layout(rect, header)
+    rows = np.array(rect[:, : chunk_size or rect.shape[1]])
+    if mutate is not None:
+        mutate(rows, lay)
+    header.chunk_size = rows.shape[1]
+    return header.serialize() + rows.tobytes()
+
+
+def _set_anchor(rows, size):
+    rows[:, 1] = (rows[:, 1] & 0xF0) | size
+
+
+_CORRUPT = {  # case -> (VBR, chunk_size(layout) or None, mutate or None, parse_full_chunks's text)
+    "chunk_type": (False, None, lambda r, lay: r.__setitem__((0, 0), 7), "bad chunk type 0x7"),
+    "heterogeneous": (True, None, lambda r, lay: r.__setitem__((2, 2), r[2, 2] ^ 1),
+                      "heterogeneous chunk configs in one file"),
+    "chunk_config": (False, None, lambda r, lay: r.__setitem__((slice(None), 1), r[:, 1] & 0x0F),
+                     "bad chunk config"),
+    "short_lms": (False, lambda lay: 20, None, "chunk too short for LMS state"),
+    "short_scale_factors": (True, lambda lay: lay.sf_end - 1, None, "chunk too short for scale factors"),
+    "short_vbr_sizes": (True, lambda lay: lay.res_off - 1, None, "chunk too short for vbr sizes"),
+    "short_residuals": (False, lambda lay: lay.res_off + lay.res_width - 1, None, "chunk too short for residuals"),
+    # anchor 1 and one row's deltas 0: sizes of 0 in that row
+    "vbr_residual_size": (True, None, lambda r, lay: (_set_anchor(r, 1), r[1, lay.sf_end : lay.res_off].fill(0)),
+                          "bad vbr residual size"),
+    # anchor 6: sizes 5..8, more bits than the rows hold
+    "vbr_table_overflow": (True, None, lambda r, lay: _set_anchor(r, 6), "chunk too short for residuals"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_CORRUPT))
+def test_corpus_refuses_corrupt_full_chunks_as_the_host_parse_does(case):
+    """A file whose full-chunk rows ``parse_full_chunks`` refuses: the
+    corpus decode, which checks them on the host (the header and config) or
+    on the card (a VBR size table), raises the same text, and with
+    ``on_error="skip"`` gives None for that file and the JAX package's PCM
+    for the others, on a device and over a mesh, in batches that mix the
+    bad file's rows with the good files'."""
+    vbr, size, mutate, text = _CORRUPT[case]
+    base = _encode(2, 400, _st(vbr))
+    header, rect, _tail = batch.split_chunks(base)
+    bad = _rows_file(base, size and size(batch.full_chunk_layout(rect, header)), mutate)
+    with pytest.raises(SeaInvalidFrame) as host:
+        h, r, _t = batch.split_chunks(bad)
+        batch.parse_full_chunks(r, h)
+    assert str(host.value) == text
+    files = [_encode(2, 437, _st(False)), base, bad, _encode(2, 530, _st(True)), _encode(2, 63, _st(True))]
+    with pytest.raises(SeaInvalidFrame) as corpus:
+        batch.decode_corpus(files, device_batch=3, device="cpu")
+    assert str(corpus.value) == text
+    want = j_batch.decode_corpus(files, on_error="skip")
+    assert want[2] is None
+    _assert_same(batch.decode_corpus(files, device_batch=3, on_error="skip", device="cpu"), want)
+    mesh = pipeline.make_mesh(devices=[torch.device("cpu")] * 3)
+    _assert_same(batch.decode_corpus(files, device_batch=3, on_error="skip", mesh=mesh), want)
+
+
+@pytest.mark.parametrize("entries", [1, 4])
+def test_corpus_parses_every_full_row_on_the_card(entries, monkeypatch):
+    """The corpus decode never parses a full chunk on the host: with
+    ``parse_full_chunks`` refusing every call, a CBR and VBR corpus with
+    ragged tails, an exact-multiple file and tail-only files decodes to the
+    JAX package's PCM on one device and over a 4-entry mesh, and
+    ``decode_card_rows_count`` counts every full-chunk row."""
+    encs = [_encode(2, 437, _st(False)), _encode(2, 530, _st(True)), _encode(2, 400, _st(False)),
+            _encode(2, 63, _st(True)), _encode(2, 37, _st(False)), _encode(2, 700, _st(True))]
+    n_rows = sum(r.shape[0] for _h, r, _t in map(batch.split_chunks, encs) if r is not None)
+    want = j_batch.decode_corpus(encs)
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a full chunk parsed on the host")
+
+    monkeypatch.setattr(batch, "parse_full_chunks", refuse)
+    place = dict(device="cpu") if entries == 1 else dict(mesh=pipeline.make_mesh(devices=[torch.device("cpu")] * 4))
+    batch.PIPELINE_TIMES = times = StageTimes()
+    try:
+        got = batch.decode_corpus(encs, device_batch=3, **place)
+    finally:
+        batch.PIPELINE_TIMES = None
+    _assert_same(got, want)
+    assert n_rows == 4 + 5 + 4 + 7
+    assert times["decode_card_rows_count"] == n_rows
