@@ -95,8 +95,10 @@ _PACK_BLOCK_ROWS = 64  # chunks per numpy VBR residual pack; the bytes do not de
 # card's work not yet done and the device->host download; for decode also
 # the one readback of the card's VBR size-table checks),
 # ``encode_assemble``/``decode_assemble`` (host CPU: container serialize /
-# PCM reassembly) and ``encode_pack`` (VBR: the host's enqueue of a slab's
-# device row serializer), ``*_put_bytes``/``*_fetch_bytes``, the bytes
+# PCM reassembly), ``encode_pack`` (VBR: the host's enqueue of a slab's
+# device row serializer) and ``encode_rank`` (VBR: the enqueue of each
+# chunk index's size ranking between the two searches, inside
+# ``encode_search``), ``*_put_bytes``/``*_fetch_bytes``, the bytes
 # moved, ``encode_search_launches_count``, the search's kernel launches,
 # ``encode_search_lanes_count``, the lanes of those launches,
 # ``encode_serialize_launches_count`` (VBR), the row serializer's kernel
@@ -1150,8 +1152,9 @@ def encode_corpus(
     ``encode_put``, ``encode_fetch`` and ``encode_assemble`` and the
     ``encode_put_bytes``/``encode_fetch_bytes`` counters are recorded, as in
     the JAX package, and besides ``encode_search`` (the host's enqueue of a
-    slab's search launches), ``encode_pack`` (VBR: the host's enqueue of a
-    slab's row serializer), ``encode_search_launches_count`` (the
+    slab's search launches), ``encode_rank`` (VBR: inside it, the enqueue
+    of each chunk index's size ranking), ``encode_pack`` (VBR: the host's
+    enqueue of a slab's row serializer), ``encode_search_launches_count`` (the
     ``window_search`` launches of the ``encode_search`` stages),
     ``encode_search_lanes_count`` (the lanes of those launches, summed) and
     ``encode_serialize_launches_count`` (VBR: the row kernel's launches of
@@ -1301,7 +1304,7 @@ def encode_corpus(
                     x, frames_d, tail_idx_d, h, w, p, residual_size=residual_size, **skw))
             else:
                 *outs, h, w, p = search(lambda: corpus_vbr_nv(
-                    x, frames_d, h, w, p, base=base, dist=(m1, p1, p2), **skw))
+                    x, frames_d, h, w, p, base=base, dist=(m1, p1, p2), span=_pt, **skw))
                 outs = pack(outs)
             carry = (h, w, p)
             return group, (c0, c1), xfer.get(outs), outs

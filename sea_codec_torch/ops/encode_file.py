@@ -32,6 +32,8 @@ per lane here takes every legal configuration.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from .window_search import window_search
@@ -160,6 +162,7 @@ def files_to_lanes(t, w: int, nf: int, c: int):
 
 def corpus_vbr_scan(
     samples, nv, hist0, wts0, prev0, *, scale_factor_frames, scale_factor_bits, base, dist, n_files,
+    span=contextlib.nullcontext,
 ):
     """Corpus VBR encode of full chunks: ``samples`` int16[nc, fpc, B],
     ``nv`` int32[nc, W, B] with every chunk of a lane full or fully masked
@@ -170,9 +173,10 @@ def corpus_vbr_scan(
     fully masked chunk ranks every candidate 0: pass 1 keeps ``prev_sf``
     and pass 2 leaves the lane's carry as it was after its last full
     chunk, which seeds its tail. Nothing in the loop waits for the device.
-    Returns (sf uint8[nc, W, B], codes uint8[nc, fpc, B], sizes
-    uint8[nc, W, B], ehist int32[nc, B, 4], ewts, hist int32[B, 4], wts,
-    prev int32[B])."""
+    ``span(name)`` is a context manager opened around each chunk index's
+    ranking as ``encode_rank`` (``batch._pt``; none by default). Returns
+    (sf uint8[nc, W, B], codes uint8[nc, fpc, B], sizes uint8[nc, W, B],
+    ehist int32[nc, B, 4], ewts, hist int32[B, 4], wts, prev int32[B])."""
     nc, fpc, b = samples.shape
     sff = scale_factor_frames
     w = fpc // sff
@@ -187,7 +191,8 @@ def corpus_vbr_scan(
         _sf, _codes, ranks, _eh, _ew, _h1, _w1, prev1 = window_search(
             x, nvk, hist, wts, prev, rs=base + 1, ranks_only=True, **kw
         )
-        sizes = files_to_lanes(vbr_sizes_rows(lanes_to_files(ranks, w, nf, c), base, m1, p1, p2), w, nf, c)
+        with span("encode_rank"):
+            sizes = files_to_lanes(vbr_sizes_rows(lanes_to_files(ranks, w, nf, c), base, m1, p1, p2), w, nf, c)
         sf, codes, _ranks, _eh, _ew, h2, w2, pv2 = window_search(
             x, nvk, hist, wts, prev1, rs=sizes, rs_range=vbr_size_range(base), **kw
         )
@@ -203,6 +208,7 @@ def corpus_vbr_scan(
 
 def corpus_vbr_nv(
     samples, frames, hist0, wts0, prev0, *, scale_factor_frames, scale_factor_bits, base, dist, n_files,
+    span=contextlib.nullcontext,
 ):
     """``corpus_vbr_scan`` with the valid lengths built on the device from
     each lane's frame count ``frames`` int32[B]: only full chunks ride the
@@ -211,5 +217,5 @@ def corpus_vbr_nv(
     nv = corpus_n_valid(frames, nc, fpc, scale_factor_frames, full_only=True)
     return corpus_vbr_scan(
         samples, nv, hist0, wts0, prev0, scale_factor_frames=scale_factor_frames,
-        scale_factor_bits=scale_factor_bits, base=base, dist=dist, n_files=n_files,
+        scale_factor_bits=scale_factor_bits, base=base, dist=dist, n_files=n_files, span=span,
     )

@@ -14,10 +14,15 @@ import pytest
 import torch
 
 from sea_codec_torch import EncoderSettings, batch, sea_encode
-from sea_codec_torch.models.vbr import interpolate_distribution, normalized_vbr_bitrate, vbr_base
+from sea_codec_torch.models.vbr import (
+    chunk_residual_size,
+    interpolate_distribution,
+    normalized_vbr_bitrate,
+    vbr_base,
+)
 from sea_codec_torch.native import binding
 from sea_codec_torch.ops import serialize_device
-from sea_codec_torch.ops.serialize_device import corpus_rows_vbr_device, vbr_chunk_size
+from sea_codec_torch.ops.serialize_device import corpus_rows_vbr_device, vbr_chunk_size, vbr_rank_sizes
 from sea_codec_torch.utils.profiling import StageTimes
 from sea_codec_torch.utils.signal import TEST_SAMPLE_RATE, varied_signal
 from sea_codec_tpu import EncoderSettings as JaxSettings
@@ -30,25 +35,27 @@ W = 5  # windows a chunk
 FULL = [4, 2, 1]  # each file's full chunks in the slab; its rows past them are garbage
 
 
-def _slab(rng, c, sfb, sff, rs, nc=max(FULL)):
+def _slab(rng, c, sfb, sff, rs, nc=max(FULL), w=W, pool=None):
     """Lane-packed search outputs of one slab, ``len(FULL)`` files x ``c``
-    channels: every valid (file, chunk) draws its sizes as a permutation of
-    one multiset of rs-1..rs+2 (clamped to 1..8), so that every full chunk
-    has the same residual bits, as the search's size rule gives; a garbage
-    row's sizes are anything, 0 and 9..255 too. Returns the five arrays
-    and the chunk size."""
+    channels of ``w`` windows a chunk: every valid (file, chunk) draws its
+    sizes as a permutation of one multiset (``pool``, or one drawn of
+    rs-1..rs+2 clamped to 1..8), so that every full chunk has the same
+    residual bits, as the search's size rule gives; a garbage row's sizes
+    are anything, 0 and 9..255 too. Returns the five arrays and the chunk
+    size."""
     nf = len(FULL)
     b = nf * c
-    pool = np.clip(rng.integers(rs - 1, rs + 3, size=W * c), 1, 8)
-    sizes = rng.integers(0, 256, size=(nc, W, b)).astype(np.uint8)
+    if pool is None:
+        pool = np.clip(rng.integers(rs - 1, rs + 3, size=w * c), 1, 8)
+    sizes = rng.integers(0, 256, size=(nc, w, b)).astype(np.uint8)
     for j, n in enumerate(FULL):
         for k in range(n):
-            sizes[k, :, j * c : (j + 1) * c] = rng.permutation(pool).reshape(W, c)
+            sizes[k, :, j * c : (j + 1) * c] = rng.permutation(pool).reshape(w, c)
     widths = np.repeat(np.clip(sizes, 1, 8), sff, axis=1).astype(np.int64)
-    codes = (rng.integers(0, 256, size=(nc, W * sff, b)) % (1 << widths)).astype(np.uint8)
-    sf = rng.integers(0, 1 << sfb, size=(nc, W, b)).astype(np.uint8)
+    codes = (rng.integers(0, 256, size=(nc, w * sff, b)) % (1 << widths)).astype(np.uint8)
+    sf = rng.integers(0, 1 << sfb, size=(nc, w, b)).astype(np.uint8)
     ehist, ewts = (rng.integers(-(1 << 31), (1 << 31) - 1, size=(nc, b, 4)).astype(np.int32) for _ in range(2))
-    fixed = 4 + 16 * c + -(-(W * c * sfb) // 8) + -(-(W * c * 2) // 8)
+    fixed = 4 + 16 * c + -(-(w * c * sfb) // 8) + -(-(w * c * 2) // 8)
     return (sf, codes, sizes, ehist, ewts), fixed + -(-(sff * int(pool.sum())) // 8)
 
 
@@ -62,6 +69,30 @@ def test_plain_rows_match_the_host_pack_and_jax(c, sfb, sff, rs, monkeypatch):
     with numpy's, and the JAX package's; garbage rows change nothing."""
     rng = np.random.default_rng(1000 * c + 10 * sfb + sff + rs)
     arrays, size = _slab(rng, c, sfb, sff, rs)
+    _check_rows(arrays, size, c, sfb, sff, rs, monkeypatch)
+
+
+def test_plain_rows_match_the_host_pack_at_the_64_channel_geometry(monkeypatch):
+    """At ``sea-vbr3-mc64-48k``'s geometry (64 channels, 2,400 frames a
+    chunk, sfb 4, sff 20, VBR at 3 bits), 7,680 items a row, which the
+    kernel's residuals take in two tiles of at most 4,096 on the card, with
+    the sizes the size rule assigns (2, 3 and 4 for 2,943, 4,508 and 229
+    items): 57,603-byte rows, each equal to the host's pack and the JAX
+    package's."""
+    c, fpc, sfb, sff = 64, 2400, 4, 20
+    target = normalized_vbr_bitrate(3.0, fpc, sfb, sff)
+    m1, _t, p1, p2 = interpolate_distribution(fpc // sff * c, target)
+    pool = vbr_rank_sizes(fpc // sff * c, vbr_base(target), (m1, p1, p2))
+    assert np.bincount(pool, minlength=5)[1:5].tolist() == [0, 2943, 4508, 229]
+    rs = chunk_residual_size(3.0, target)
+    arrays, size = _slab(np.random.default_rng(64), c, sfb, sff, rs, w=fpc // sff, pool=pool)
+    assert size == vbr_chunk_size(c, fpc, sfb, sff, vbr_base(target), (m1, p1, p2)) == 57_603
+    _check_rows(arrays, size, c, sfb, sff, rs, monkeypatch)
+
+
+def _check_rows(arrays, size, c, sfb, sff, rs, monkeypatch):
+    """The plain rows of a slab's ``arrays`` against the host's pack, under
+    both packers, and the JAX package's, file by file."""
     got = corpus_rows_vbr_device(*(torch.from_numpy(a) for a in arrays), len(FULL), sfb, sff, rs, size)
     assert got.shape == (len(FULL), max(FULL), size) and got.dtype == torch.uint8
     packers = ["numpy"] + ["native"] * (binding.compiler() is not None)

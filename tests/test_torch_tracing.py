@@ -18,7 +18,7 @@ from sea_codec_torch.utils.signal import TEST_SAMPLE_RATE, varied_signal
 torch.set_num_threads(1)
 
 RANGE_STAGES = ("range_split", "range_parse", "range_decode")
-ENCODE_STAGES = ("encode_search", "encode_pack")
+ENCODE_STAGES = ("encode_search", "encode_pack", "encode_rank")
 CALL = "test.call"
 
 
@@ -149,6 +149,41 @@ def test_encode_corpus_counts_the_lanes_of_each_launch(vbr, installed, monkeypat
     assert times["encode_search_launches_count"] == len(lanes)
 
 
+class Intervals(StageTimes):
+    """A ``StageTimes`` that keeps each ``add``'s name, as the benchmark's
+    keeps an interval for each."""
+
+    def __init__(self):
+        super().__init__()
+        self.added = []
+
+    def add(self, name, seconds):
+        super().add(name, seconds)
+        self.added.append(name)
+
+
+@pytest.mark.parametrize("budget_chunks", [None, 1, 3])
+@pytest.mark.parametrize("vbr", [False, True])
+def test_encode_rank_once_a_chunk_index_of_each_slab(vbr, budget_chunks, installed, monkeypatch):
+    """A VBR encode records ``encode_rank`` once for each chunk index of
+    each slab (the longest file's 4 whole chunks, in 1, 4 or 2 slabs), and
+    not for the tails, with its bytes unchanged; a CBR encode records
+    none."""
+    st = EncoderSettings(frames_per_chunk=100, residual_bits=2.5 if vbr else 3.0, vbr=vbr)
+    files = _files()
+    want = batch.encode_corpus(files, TEST_SAMPLE_RATE, 2, st, device="cpu")
+    if budget_chunks is not None:
+        monkeypatch.setattr(batch, "_GROUP_DEVICE_BYTES", budget_chunks * 8 * 100 * batch._LANE_FRAME_BYTES)
+    slabs = batch._slabs([437, 250, 99, 0], 2, 100, full_only=vbr)
+    assert len(slabs) == (1 if budget_chunks is None else -(-(4 if vbr else 5) // budget_chunks))
+    got, times = installed(lambda: batch.encode_corpus(files, TEST_SAMPLE_RATE, 2, st, device="cpu"), Intervals())
+    assert got == want
+    assert times.added.count("encode_rank") == (sum(c1 - c0 for c0, c1 in slabs) if vbr else 0) == 4 * vbr
+    assert ("encode_rank" in times) == vbr and times.get("encode_rank", 1) > 0
+    if vbr:
+        assert times["encode_rank"] < times["encode_search"]  # inside it
+
+
 def test_launch_count_recorded_when_nothing_launches(installed):
     """On the CPU the kernel's launch counter does not move: the count is
     still recorded, as 0."""
@@ -163,21 +198,12 @@ def test_count_does_not_go_through_add(installed, counting_search):
     benchmark's does, sees no ``add`` for a count; a count's name must end
     in ``_count``."""
 
-    class Intervals(StageTimes):
-        def __init__(self):
-            super().__init__()
-            self.added = []
-
-        def add(self, name, seconds):
-            super().add(name, seconds)
-            self.added.append(name)
-
     st = EncoderSettings(frames_per_chunk=100, residual_bits=2.5, vbr=True)
     _out, times = installed(lambda: batch.encode_corpus(_files(), TEST_SAMPLE_RATE, 2, st, device="cpu"),
                             Intervals())
     times.count("extra_count", 3)
     assert times["encode_search_launches_count"] == 10 and times["extra_count"] == 3
-    assert "encode_search" in times.added and "encode_pack" in times.added
+    assert {"encode_search", "encode_pack", "encode_rank"} <= set(times.added)
     assert not [k for k in times.added if k.endswith("_count")]
     with pytest.raises(ValueError):
         times.count("encode_search", 1)
