@@ -1,10 +1,10 @@
 """``decode_range`` and ``decode_corpus`` of the PyTorch port
 (``device="cpu"``) against the JAX package's functions: tail-only files, a
 ragged mix, several configurations in one corpus, ``on_error="skip"``, the
-wave drain, both routings of the decode, corrupt full chunks refused with
-the host parser's texts, and full chunks parsed on the card alone. Mirrors
-the JAX package's tail-merge and batch tests. Integer codec: exact
-equality."""
+wave drain, results that own their PCM, both routings of the decode,
+corrupt full chunks refused with the host parser's texts, and full chunks
+parsed on the card alone. Mirrors the JAX package's tail-merge and batch
+tests. Integer codec: exact equality."""
 
 from __future__ import annotations
 
@@ -109,18 +109,138 @@ def test_corpus_on_error_skip():
 
 @pytest.mark.parametrize("vbr", [False, True])
 def test_corpus_wave_drain_gives_the_same_pcm(vbr, monkeypatch):
-    """A live-bytes bound below one batch drains after every launch."""
+    """A live-bytes bound below one batch brings each batch down before the
+    next launch. Downloads here never land on their own, as on a card still
+    busy: with the bound, the bytes fetched at each launch are those of
+    every batch launched before it; without it, none has come down before
+    the last launch. The PCM is the same either way."""
     st = _st(vbr)
     encs = [_encode(2, n, st) for n in [330, 250, 99, 401]]
     want = batch.decode_corpus(encs, device_batch=2, device="cpu")
-    monkeypatch.setenv("SEA_DECODE_MAX_LIVE_BYTES", "1")
-    drains = []
-    real = torch.Tensor.cpu
-    monkeypatch.setattr(torch.Tensor, "cpu", lambda t, *a, **k: (drains.append(1), real(t, *a, **k))[1])
-    got = batch.decode_corpus(encs, device_batch=2, device="cpu")
-    monkeypatch.undo()
-    _assert_same(got, want)
-    assert len(drains) >= 5  # one copy per launched batch
+    monkeypatch.setattr(batch._Download, "ready", lambda self: False)
+    real = batch.decode_chunks_packed
+    seen = []  # (PCM bytes fetched before a launch, the launch's PCM bytes)
+
+    def launch(*a, **k):
+        out = real(*a, **k)
+        seen.append((batch.PIPELINE_TIMES["decode_fetch_bytes"], out.nbytes))
+        return out
+
+    monkeypatch.setattr(batch, "decode_chunks_packed", launch)
+    for bound in (None, "1"):
+        if bound is None:
+            monkeypatch.delenv("SEA_DECODE_MAX_LIVE_BYTES", raising=False)
+        else:
+            monkeypatch.setenv("SEA_DECODE_MAX_LIVE_BYTES", bound)
+        seen.clear()
+        batch.PIPELINE_TIMES = times = StageTimes()
+        try:
+            got = batch.decode_corpus(encs, device_batch=2, device="cpu")
+        finally:
+            batch.PIPELINE_TIMES = None
+        _assert_same(got, want)
+        fetched = [f for f, _n in seen]
+        launched = np.cumsum([0] + [n for _f, n in seen]).tolist()
+        assert len(seen) >= 5 and times["decode_fetch_bytes"] == launched[-1]
+        assert fetched == (launched[:-1] if bound else [0] * len(seen))
+
+
+def _own_pcm_corpus(vbr):
+    """Mixed configurations of one mode: ragged tails, an exact multiple of
+    the chunk, a tail-only file, another channel count and chunk length."""
+    return [_encode(2, 437, _st(vbr)), _encode(2, 63, _st(vbr)), _encode(3, 410, _st(vbr)),
+            _encode(2, 300, _st(vbr)), _encode(1, 130, _st(vbr, fpc=60)), _encode(2, 251, _st(vbr))]
+
+
+def _assert_own_pcm(outs, encs):
+    """Each result a C-contiguous int16 array of its file's frames x
+    channels, owning its memory and sharing it with no other result."""
+    kept = [(o, e) for o, e in zip(outs, encs) if o is not None]
+    for o, e in kept:
+        header = batch.split_chunks(e)[0]
+        s = o.samples
+        assert s.dtype == np.int16 and s.ndim == 1 and s.flags.c_contiguous and s.flags.owndata
+        assert s.size == header.total_frames * header.channels
+    for i, (o, _e) in enumerate(kept):
+        for p, _f in kept[i + 1 :]:
+            assert not np.shares_memory(o.samples, p.samples)
+
+
+class _Unfinished:
+    """A copy's future that reads as still running until it is waited for."""
+
+    def __init__(self, future):
+        self.future = future
+
+    def done(self):
+        return False
+
+    def result(self):
+        return self.future.result()
+
+
+@pytest.fixture
+def threaded_placement(monkeypatch):
+    """Placement through the copy threads in small pieces, each read as
+    running until waited for (as a placement still copying), with a bound
+    on PCM in flight below two batches; records the bytes in flight after
+    each batch starts, beside the batch's own."""
+    monkeypatch.setattr(batch, "_STAGE_PIECE_BYTES", 256)
+    monkeypatch.setattr(batch, "_DRAIN_PINNED_BYTES", 3000)
+    copy = batch._copy
+    monkeypatch.setattr(batch, "_copy", lambda pairs: [_Unfinished(f) for f in copy(pairs)])
+    held = []
+    real = batch._PcmDrain.start
+
+    def start(self, xfer, pcm, places):
+        real(self, xfer, pcm, places)
+        held.append((self.host_bytes, pcm.nbytes))
+
+    monkeypatch.setattr(batch._PcmDrain, "start", start)
+    return held
+
+
+def _place(entries):
+    if entries == 1:
+        return dict(device="cpu")
+    return dict(mesh=pipeline.make_mesh(devices=[torch.device("cpu")] * entries))
+
+
+@pytest.mark.parametrize("entries", [1, 4])
+@pytest.mark.parametrize("vbr", [False, True])
+def test_corpus_results_own_their_pcm(vbr, entries, threaded_placement):
+    """Each file's PCM is written once into an output of its own, as its
+    batches land, in batches that split one file and join several: every
+    result equals ``decode_sea``'s and the JAX package's PCM, is exactly
+    its file's frames x channels, and shares memory with no other result.
+    The PCM in flight stays within the bound, or one batch past it."""
+    encs = _own_pcm_corpus(vbr)
+    outs = batch.decode_corpus(encs, device_batch=3, **_place(entries))
+    _assert_same(outs, j_batch.decode_corpus(encs))
+    for o, e in zip(outs, encs):
+        np.testing.assert_array_equal(o.samples, sea_decode(e, device="cpu").samples)
+    _assert_own_pcm(outs, encs)
+    assert len(threaded_placement) >= 7  # 2-channel rows 4, 3-channel 2, mono 1
+    assert all(h <= max(batch._DRAIN_PINNED_BYTES, n) for h, n in threaded_placement)
+    assert any(h > n for h, n in threaded_placement)  # batches were in flight together
+
+
+@pytest.mark.parametrize("entries", [1, 4])
+def test_corpus_skip_drops_the_pcm_of_a_bad_size_table(entries, threaded_placement):
+    """With ``on_error="skip"``, a VBR file whose size table the card
+    refuses gives None, its PCM already placed and then dropped, and every
+    other file its exact PCM in an output of its own."""
+    base = _encode(2, 400, _st(True))
+    bad = _rows_file(base, mutate=lambda r, lay: _set_anchor(r, 6))
+    encs = _own_pcm_corpus(True)
+    encs.insert(2, bad)
+    outs = batch.decode_corpus(encs, device_batch=3, on_error="skip", **_place(entries))
+    assert outs[2] is None and sum(o is None for o in outs) == 1
+    _assert_same(outs, j_batch.decode_corpus(encs, on_error="skip"))
+    for o, e in zip(outs, encs):
+        if o is not None:
+            np.testing.assert_array_equal(o.samples, sea_decode(e, device="cpu").samples)
+    _assert_own_pcm(outs, encs)
 
 
 def test_oversize_tail_group_takes_the_two_kernel_path(monkeypatch):
@@ -266,10 +386,9 @@ def test_corpus_parses_every_full_row_on_the_card(entries, monkeypatch):
         raise AssertionError("a full chunk parsed on the host")
 
     monkeypatch.setattr(batch, "parse_full_chunks", refuse)
-    place = dict(device="cpu") if entries == 1 else dict(mesh=pipeline.make_mesh(devices=[torch.device("cpu")] * 4))
     batch.PIPELINE_TIMES = times = StageTimes()
     try:
-        got = batch.decode_corpus(encs, device_batch=3, **place)
+        got = batch.decode_corpus(encs, device_batch=3, **_place(entries))
     finally:
         batch.PIPELINE_TIMES = None
     _assert_same(got, want)
